@@ -5,22 +5,28 @@
     python3 chip_smoke.py --validators 4096 --sets 8 --keys 16 --batches 1
 
 Phases (any failure exits non-zero; nothing is caught and carried on from):
-  1. build the fused field-multiply kernel (csrc/fused_mul.cu, nvcc, sm_90a);
+  1. build the fused field-multiply kernels (csrc/fused_mul.cu: the plan
+     kernel and the chain kernel; nvcc, sm_90a);
   2. build the fixture with the port's pure-Python oracle: a registry of
      consecutive secret keys (pk_i = pk_{i-1} + G in Jacobian coordinates,
      one batched normalisation), cached as .npz under .fixture_cache/, and
      per-set aggregate signatures signed by the oracle;
   3. one warm-up batch through the main path, recording the shapes the path
      gives the kernel;
-  4. each kernel entry (K1 fused_mul, K2 fused_mul lazy, K3 execute_plan on
-     MUL12, CYC_SQR, a curve add plan, a Miller line plan) launched at those
-     shapes and held bit-exact against its plain PyTorch version, timed
-     beside its bound;
+  4. the plan kernel on every schedule the warm-up launched (K1, every K3
+     plan signature) at every row count the path gave it, and the chain
+     kernel on every chain (Fermat inversion, the Fq2 square-root chain, the
+     |x| cyclotomic power), each held bit-exact against its plain PyTorch
+     version and timed beside its bound (chains also beside their own step
+     loop of plan-kernel launches); cluster sizes 1/2/4/8 at rows 1;
   5. the main path: counts set to 0, timed valid batches (each must verify
      True) and one batch with a poisoned signature (must give False), counts
-     read; every kernel entry must have launched, the plain version never;
+     read; K1, K3 and the chain kernel must have launched (K2 only inside
+     chains), every checked schedule and chain too, the plain version never;
   6. the h2c stage's message points held against the oracle's
-     hash_to_curve on the first messages.
+     hash_to_curve on the first messages;
+  7. one more valid batch under torch.profiler: device busy time, idle
+     share, aten ops dispatched, device time by kernel.
 
 Full configuration (mainnet gossip): 2^20 validator pubkeys resident as the
 [N, 3, 25] cache, batches of 64 aggregate signature sets, 512 keys per set,
@@ -140,34 +146,50 @@ def _batch(rng, n_val: int, sk0: int, n_sets: int, k: int, poison: bool = False)
 # --------------------------------------------------------------------------------------
 
 
-def _sched_ops(sched, rows: int):
-    """(int32 operations, bytes) the kernel's function needs at ``rows``:
-    each input read once, each output written once."""
-    L, w = sched.L, 101
-    mac = L * 2601
+SRC = "lighthouse_tpu_torch/csrc/fused_mul.cu"
+REPLACES = {
+    "K1": "lighthouse_tpu/ops/bls/pallas_kernels.py:587 (fused_mul, lazy=False -> _build_call:497)",
+    "K3": "lighthouse_tpu/ops/bls/pallas_kernels.py:620 (execute_plan -> _build_call:497)",
+    "CHAIN": "lighthouse_tpu/ops/bls/pallas_kernels.py:587/:620 (one _build_call:497 launch per "
+             "step of fq.py:887 pow_fixed_scan, tower.py:282 _sqrt_chain, "
+             "tower.py:588 fq12_cyclotomic_exp_abs_x)",
+}
 
-    def replay(ops, planes, w):
-        n = 0
-        for op in ops:
-            if op[0] == "split":
-                n += planes * (w + 1) * 2
-                w += 1
-            elif op[0] == "trim":
-                w = op[1]
-            else:
-                n += planes * 48 * op[1]
-                w = 48
-        return n, w
 
-    n, w = replay(sched.pre_ops, L, w)
+def _replay_ops(ops, planes: int, w: int):
+    """(multiply-adds, final width) of a split/trim/fold schedule."""
+    n = 0
+    for op in ops:
+        if op[0] == "split":
+            n += planes * (w + 1)
+            w += 1
+        elif op[0] == "trim":
+            w = op[1]
+        else:
+            n += planes * 48 * op[1]
+            w = 48
+    return n, w
+
+
+def _step_ops(sched) -> int:
+    """int32 operations of one plan step on one row (a multiply-add counts
+    two): the input lincombs' nonzero terms (int64 multiply-adds, counted as
+    int32 ones so the bound stays a lower bound), the 51x51 digit conv, the
+    schedule ops and the output map's nonzero terms."""
+    terms = [int((pos != neg).sum()) for pos, neg, _ in (sched.lin_a, sched.lin_b)]
+    mac = 25 * sum(terms) + sched.L * 2601
+    n, w = _replay_ops(sched.pre_ops, sched.L, 101)
     mac += n
     if sched.has_out:
-        nin = L + sched.n_pass
-        mac += sched.R * w * nin * (2 if sched.has_neg else 1)
-        n, w = replay(sched.post_ops, sched.R, w)
-        mac += n
-    nbytes = rows * (2 * L + sched.n_pass + sched.R) * 25 * 8
-    return 2 * mac * rows, nbytes
+        mac += w * int((sched.mpos != sched.mneg).sum())
+        mac += _replay_ops(sched.post_ops, sched.R, w)[0]
+    return 2 * mac
+
+
+def _bound(n_ops: int, n_bytes: int):
+    t_ops = n_ops / H100_INT32_OPS_PER_S * 1e3
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def _time(fn, reps: int) -> float:
@@ -213,101 +235,188 @@ def _time_graph(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / (3 * reps)
 
 
-def _kernel_inputs(sched, prep, rows: int, gen, dev):
-    """Kernel operands at ``rows``: random canonical inputs through the
-    entry's own input lincombs, plus one edge row of maximal limbs."""
-    import torch
-
-    from lighthouse_tpu_torch.ops.bls import fq, plans
-
-    def canon(n_el):
-        limbs = torch.randint(0, 1 << 16, (rows, n_el, 25), generator=gen, dtype=torch.int64)
-        limbs[..., 23] &= 0x0FFF   # value < 2^380 < p
-        limbs[..., 24] = 0
-        return limbs.to(dev)
-
-    if prep is None:  # K1 / K2: operands straight into the kernel
-        lazy = sched.kind == "K2"
-        lim = fq.CHAIN_LIMB_TARGET if lazy else fq._IN_LIMB
-        vlim = fq.CHAIN_VALUE_LIMIT if lazy else fq._IN_VALUE
-        A, B = canon(1), canon(1)
-        edge = edge_limbs(lim, vlim - 1)
-        A[0, 0] = torch.tensor(edge, device=dev)
-        B[0, 0] = torch.tensor(edge, device=dev)
-        return A, B, None
-    n_a = prep.lin_a[0].shape[1]
-    n_b = prep.plan.n_b
-    a, b = canon(n_a), canon(n_b)
-    A = plans.apply_tables(prep.lin_a, a)
-    B = plans.apply_tables(prep.lin_b, plans.append_const_pool(prep.plan, b))
-    return A.contiguous(), B.contiguous(), (a.contiguous() if sched.n_pass else None)
-
-
-def edge_limbs(lim: int, value_max: int) -> list[int]:
+def edge_limbs(lim: int, value_max: int, top: int) -> list[int]:
     """Limbs as large as the budget allows: limbs 0..22 at ``lim``, the top
-    two filled greedily up to value ``value_max``."""
+    two filled greedily up to value ``value_max`` (limb 24 at most ``top``)."""
     edge = [lim] * 23
     room = value_max - sum(v << (16 * i) for i, v in enumerate(edge))
-    l24 = min(lim, room >> 384)
+    l24 = min(lim, room >> 384, top)
     l23 = min(lim, (room - (l24 << 384)) >> 368)
     return edge + [l23, l24]
 
 
-def kernel_checks(shapes: dict, dev) -> list:
-    """K1, K2 and K3 entries at the path's shapes: bit-exact against the plain
-    version on the card; kernel and plain times; bounds."""
+def _operand(rows: int, n_el: int, bound, gen, dev):
+    """Random canonical elements, with row 0 at the bound's maxima."""
+    import torch
+
+    x = torch.randint(0, 1 << 16, (rows, n_el, 25), generator=gen, dtype=torch.int64)
+    x[..., 23] &= 0x0FFF   # value < 2^380 < p
+    x[..., 24] = 0
+    x[0] = torch.tensor(edge_limbs(*bound), dtype=torch.int64)
+    return x.to(dev)
+
+
+def _check_layouts(sched=None, prog=None, C: int = 1) -> None:
+    """The host's shared-memory sizes equal the CUDA source's own layout
+    (lh_plan_smem_bytes / lh_chain_smem_bytes) at cluster size C."""
+    from lighthouse_tpu_torch.ops.bls import fused_mul as fm
+
+    lib = fm._lib()
+    if sched is not None:
+        want = lib.lh_plan_smem_bytes(
+            sched.n_a, sched.n_b, sched.L, sched.lanes_per_cta(C), sched.wmax, C,
+            sched.threads(C),
+        )
+        got, what = sched.smem_bytes(C), sched.label
+    else:
+        threads, lane_words, all_words, got = prog.launch_shape(C)
+        want = lib.lh_chain_smem_bytes(prog.n_state, prog.n_el, lane_words, all_words, threads)
+        what = prog.name
+    if got != want:
+        raise RuntimeError(f"{what} C={C}: host smem {got} != the kernel's layout {want}")
+
+
+def _signature(sched):
+    """The plan cache's key of a K3 schedule without the plan's id: (n_a,
+    bound keys of a and b, name, output bound key); None for K1."""
+    from lighthouse_tpu_torch.ops.bls import fused_mul as fm
+
+    for key, prep in fm._PLAN_CACHE.items():
+        if prep.sched is sched:
+            return key[1:]
+    return None
+
+
+def plan_checks(shapes: dict, dev, gen) -> list:
+    """The plan kernel on every schedule the warm-up batch launched: held
+    bit-exact against ``plain_plan`` at every row count the path gave it, and
+    timed at its most-launched row count beside its bound."""
     import torch
 
     from lighthouse_tpu_torch.ops.bls import fused_mul as fm
 
-    gen = torch.Generator().manual_seed(20261017)
-    preps = {p.sched.name: p for p in fm._PLAN_CACHE.values()}
-    targets = [
-        ("K1", "pallas_mul", None),
-        ("K2", "pallas_mul_lazy", None),
-        ("K3", "fq12_mul_c", "MUL12"),
-        ("K3", "cyc_sqr_c", "CYC_SQR"),
-        ("K3", "g2add1", "curve add (G2, level 1)"),
-        ("K3", "mldbl2", "Miller doubling line (level 2, pass-through)"),
-    ]
-    rows_out = []
-    for kind, name, label in targets:
-        seen = {r: c for (k, n, r), c in shapes.items() if k == kind and n == name}
-        if not seen:
-            raise RuntimeError(f"{kind} {name}: not launched by the main path")
+    by_label: dict = {}
+    for (kind, label, rows), c in shapes.items():
+        if kind in ("K1", "K2", "K3"):
+            by_label.setdefault(label, {})[rows] = c
+    out = []
+    for label in sorted(by_label, key=lambda lb: -sum(by_label[lb].values())):
+        sched = fm.SCHEDULES[label]
+        seen = by_label[label]
+        for rows in sorted(seen):
+            a = _operand(rows, sched.n_a, sched.in_bounds[0], gen, dev)
+            b = _operand(rows, sched.n_b, sched.in_bounds[1], gen, dev)
+            got = fm.cuda_fused(sched, a, b)
+            torch.cuda.synchronize()
+            err = int((got - fm.plain_plan(sched, a, b)).abs().max().item())
+            if err != 0:
+                raise RuntimeError(f"{label} rows={rows}: plan kernel != plain (max |diff| {err})")
         rows = max(seen, key=lambda r: (seen[r], r))
-        if kind == "K3":
-            prep = preps[name]
-            sched = prep.sched
-        else:
-            prep = None
-            sched = fm.mul_schedule(kind == "K2")
-        A, B, Ain = _kernel_inputs(sched, prep, rows, gen, dev)
-        got = fm.cuda_fused(sched, A, B, Ain)
-        torch.cuda.synchronize()
-        want = fm.plain_fused(sched, A, B, Ain)
-        torch.cuda.synchronize()
-        err = int((got - want).abs().max().item())
-        if err != 0:
-            raise RuntimeError(f"{kind} {name} rows={rows}: kernel != plain (max |diff| {err})")
-        ms = _time_graph(lambda: fm.cuda_fused(sched, A, B, Ain), 100)
-        host_ms = _time(lambda: fm.cuda_fused(sched, A, B, Ain), 200)
-        plain_ms = _time(lambda: fm.plain_fused(sched, A, B, Ain), 20)
-        n_ops, n_bytes = _sched_ops(sched, rows)
-        t_ops = n_ops / H100_INT32_OPS_PER_S * 1e3
-        t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
-        rows_out.append({
-            "kind": kind, "name": name, "label": label or name, "rows": rows,
-            "lanes": sched.L, "out_rows": sched.R, "n_pass": sched.n_pass,
-            "max_abs_err": err, "ms": ms, "launch_ms": host_ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "int32_ops": n_ops, "bytes": n_bytes,
+        a = _operand(rows, sched.n_a, sched.in_bounds[0], gen, dev)
+        b = _operand(rows, sched.n_b, sched.in_bounds[1], gen, dev)
+        C = fm.cluster_size(rows, sched.L) if sched.has_out else 1
+        _check_layouts(sched=sched, C=C)
+        ms = _time_graph(lambda: fm.cuda_fused(sched, a, b), 100)
+        host_ms = _time(lambda: fm.cuda_fused(sched, a, b), 100)
+        plain_ms = _time(lambda: fm.plain_plan(sched, a, b), 10)
+        n_bytes = rows * (sched.n_a + sched.n_b + sched.R) * 200 + sched.ints.nbytes + sched.i64.nbytes
+        bound_ms, bound_by = _bound(rows * _step_ops(sched), n_bytes)
+        out.append({
+            "kind": sched.kind, "name": label, "rows": rows, "lanes": sched.L,
+            "out_rows": sched.R, "n_pass": sched.n_pass, "cluster": C,
+            "threads": sched.threads(C), "smem": sched.smem_bytes(C), "max_abs_err": 0,
+            "ms": ms, "launch_ms": host_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "shapes": {str(r): c for r, c in sorted(seen.items())},
+            "signature": _signature(sched),
         })
-        log(f"kernel {kind} {name} rows={rows} L={sched.L} R={sched.R}: exact; "
-            f"{ms:.4f} ms kernel (graph replay), {host_ms:.4f} ms per launch from Python, "
-            f"{plain_ms:.4f} ms plain, bound {max(t_ops, t_bytes):.6f} ms")
-    return rows_out
+        log(f"plan {sched.kind} {label} rows={rows} L={sched.L} R={sched.R} C={C}: exact at "
+            f"rows {sorted(seen)}; {ms:.5f} ms kernel (graph), {host_ms:.5f} ms per launch "
+            f"from Python, {plain_ms:.3f} ms plain, bound {bound_ms:.7f} ms ({bound_by})")
+    return out
+
+
+def chain_checks(shapes: dict, dev, gen) -> list:
+    """The chain kernel on every chain the warm-up batch launched: held
+    bit-exact against ``plain_chain`` at the path's rows, timed beside its
+    bound (the sum of its steps) and beside its own step loop."""
+    import torch
+
+    from lighthouse_tpu_torch.ops.bls import fused_mul as fm
+
+    out = []
+    for (kind, name, rows), c in sorted(shapes.items(), key=lambda kv: kv[0][1:]):
+        if kind != "CHAIN":
+            continue
+        prog = fm.CHAINS[name]
+        base = _operand(rows, prog.n_el, prog.scheds[0].in_bounds[0], gen, dev)
+        got = fm.cuda_chain(prog, base)
+        torch.cuda.synchronize()
+        err = int((got - fm.plain_chain(prog, base)).abs().max().item())
+        if err != 0:
+            raise RuntimeError(f"chain {name} rows={rows}: chain kernel != plain (max |diff| {err})")
+        C = prog.cluster(rows)
+        _check_layouts(prog=prog, C=C)
+        ms = _time_graph(lambda: fm.cuda_chain(prog, base), 5)
+        host_ms = _time(lambda: fm.cuda_chain(prog, base), 5)
+        # the same chain as one plan-kernel launch per step
+        step_ms = _time_graph(lambda: fm.replay_chain(prog, base, fm.cuda_fused), 1)
+        step_host_ms = _time(lambda: fm.replay_chain(prog, base, fm.cuda_fused), 1)
+        plain_ms = _time(lambda: fm.plain_chain(prog, base), 1)
+        n_ops = rows * sum(_step_ops(prog.scheds[d]) for d, *_ in prog.steps if d != fm.COPY)
+        n_bytes = rows * prog.n_el * 200 * 2 + prog.prog.nbytes
+        bound_ms, bound_by = _bound(n_ops, n_bytes)
+        threads, _, _, smem = prog.launch_shape(C)
+        out.append({
+            "kind": "CHAIN", "name": name, "rows": rows, "lanes": max(s.L for s in prog.scheds),
+            "out_rows": prog.n_el, "n_pass": 0, "cluster": C, "threads": threads,
+            "smem": smem, "steps": len(prog.steps), "mults": prog.n_mults, "max_abs_err": err,
+            "ms": ms, "launch_ms": host_ms, "step_loop_ms": step_ms,
+            "step_loop_launch_ms": step_host_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "shapes": {str(rows): c},
+        })
+        log(f"chain {name} rows={rows} C={C} ({prog.n_mults} multiplies): exact; {ms:.4f} ms "
+            f"kernel (graph), {host_ms:.4f} ms from Python; step loop {step_ms:.4f} ms (graph), "
+            f"{step_host_ms:.4f} ms from Python; {plain_ms:.1f} ms plain; bound "
+            f"{bound_ms:.6f} ms ({bound_by})")
+    return out
+
+
+def cluster_checks(dev, gen) -> list:
+    """Cluster sizes 1, 2, 4 and 8 at rows 1 (the final exponentiation's
+    shape): MUL12 and CYC_SQR through the plan kernel and the |x| chain,
+    each bit-exact against its plain version and timed."""
+    import torch
+
+    from lighthouse_tpu_torch.ops.bls import fused_mul as fm
+
+    out = []
+    for label in ("fq12_mul_c", "cyc_sqr_c"):
+        sched = fm.SCHEDULES[label]
+        a = _operand(1, sched.n_a, sched.in_bounds[0], gen, dev)
+        b = _operand(1, sched.n_b, sched.in_bounds[1], gen, dev)
+        want = fm.plain_plan(sched, a, b)
+        for C in (1, 2, 4, 8):
+            _check_layouts(sched=sched, C=C)
+            got = fm.cuda_fused(sched, a, b, cluster=C)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise RuntimeError(f"{label} cluster {C}: plan kernel != plain")
+            ms = _time_graph(lambda: fm.cuda_fused(sched, a, b, cluster=C), 100)
+            out.append({"name": label, "cluster": C, "ms": ms})
+    prog = fm.CHAINS["cyc_exp_abs_x"]
+    base = _operand(1, 12, prog.scheds[0].in_bounds[0], gen, dev)
+    want = fm.plain_chain(prog, base)
+    for C in (1, 2, 4, 8):
+        _check_layouts(prog=prog, C=C)
+        got = fm.cuda_chain(prog, base, cluster=C)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise RuntimeError(f"cyc_exp_abs_x cluster {C}: chain kernel != plain")
+        ms = _time_graph(lambda: fm.cuda_chain(prog, base, cluster=C), 5)
+        out.append({"name": "cyc_exp_abs_x", "cluster": C, "ms": ms})
+    log("cluster sizes 1/2/4/8 at rows 1, all exact: " + ", ".join(
+        f"{r['name']} C={r['cluster']} {r['ms']:.5f} ms" for r in out))
+    return out
 
 
 # --------------------------------------------------------------------------------------
@@ -322,6 +431,8 @@ def main() -> int:
     ap.add_argument("--keys", type=int, default=512)
     ap.add_argument("--batches", type=int, default=4)
     ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--report", default=None,
+                    help="also write every measurement as JSON to this path")
     args = ap.parse_args()
 
     import torch
@@ -372,7 +483,11 @@ def main() -> int:
     shapes = dict(fm.launch_log)
 
     # 4. kernels against their plain versions at the path's shapes
-    krows = kernel_checks(shapes, dev)
+    gen = torch.Generator().manual_seed(20261017)
+    prows = plan_checks(shapes, dev, gen)
+    crows = chain_checks(shapes, dev, gen)
+    clusters = cluster_checks(dev, gen)
+    krows = prows + crows
 
     # 5. the main path
     torch.cuda.reset_peak_memory_stats()
@@ -413,9 +528,11 @@ def main() -> int:
     n_timed = len(batches) - 1
     if plain != 0:
         raise RuntimeError(f"plain version ran {plain} times on the main path")
-    for kind, c in counts.items():
-        if c == 0:
+    for kind in ("K1", "K3", "CHAIN"):
+        if counts[kind] == 0:
             raise RuntimeError(f"kernel entry {kind} never launched on the main path")
+    if counts["K2"] != 0:
+        raise RuntimeError("K2 launched outside a chain on the main path")
     for r in krows:
         if by_name.get((r["kind"], r["name"]), 0) == 0:
             raise RuntimeError(f"{r['kind']} {r['name']} never launched on the main path")
@@ -423,8 +540,8 @@ def main() -> int:
     log(f"main path: {n_timed} valid batches of {args.sets} sets x {args.keys} keys "
         f"over {args.validators} validators: {t_valid:.3f} s, {sets_per_s:.2f} sets/s")
     log("ms per batch: " + json.dumps({k: v / n_timed for k, v in stage_ms.items()}))
-    log(f"kernel launches per batch: {total / (n_timed + 1):.1f} "
-        f"({json.dumps({k: v / (n_timed + 1) for k, v in counts.items()})})")
+    per_batch = {k: v / (n_timed + 1) for k, v in counts.items()}
+    log(f"kernel launches per batch: {total / (n_timed + 1):.1f} ({json.dumps(per_batch)})")
     log(f"max_memory_allocated: {peak} bytes")
 
     # 6. the h2c stage against the oracle's hash_to_curve
@@ -461,8 +578,8 @@ def main() -> int:
             dev_us[e.key] = dev_us.get(e.key, 0.0) + us
     busy_ms = sum(dev_us.values()) / 1e3
     batch_ms = t_valid * 1e3 / n_timed
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]
     if busy_ms:
-        top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
         log(f"device busy per batch: {busy_ms:.3f} ms of {batch_ms:.3f} ms unprofiled "
             f"({prof_wall_ms:.3f} ms profiled): idle share {1 - busy_ms / batch_ms:.4f}")
         log(f"torch (aten) ops dispatched in the profiled batch: {host_ops}")
@@ -478,25 +595,27 @@ def main() -> int:
     if smi.returncode != 0:
         raise RuntimeError("nvidia-smi failed")
     log(f"elapsed: {time.time() - t_start:.1f} s")
-    per_kind = {}
-    for r in krows:
-        per_kind.setdefault(r["kind"], r)
-    src = "lighthouse_tpu_torch/csrc/fused_mul.cu"
-    repl = {
-        "K1": "lighthouse_tpu/ops/bls/pallas_kernels.py:587 (fused_mul, lazy=False -> _build_call:497)",
-        "K2": "lighthouse_tpu/ops/bls/pallas_kernels.py:587 (fused_mul, lazy=True -> _build_call:497)",
-        "K3": "lighthouse_tpu/ops/bls/pallas_kernels.py:620 (execute_plan -> _build_call:497)",
-    }
     table = []
     for r in krows:
+        kernel = "chain_kernel" if r["kind"] == "CHAIN" else "plan_kernel"
         table.append({
-            "name": f"{r['kind']} {r['name']}", "route": "cuda", "source": src,
-            "replaces": repl[r["kind"]], "launches": by_name[(r["kind"], r["name"])],
-            "entry_launches": counts[r["kind"]], "launch_ms": r["launch_ms"],
+            "name": f"{kernel} {r['kind']} {r['name']}", "route": "cuda", "source": SRC,
+            "replaces": REPLACES[r["kind"]], "launches": by_name[(r["kind"], r["name"])],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
             "rows": r["rows"], "lanes": r["lanes"], "out_rows": r["out_rows"],
+            "cluster": r["cluster"], "launch_ms": r["launch_ms"],
         })
+    if args.report:
+        with open(args.report, "w") as f:
+            json.dump({
+                "card": smi.stdout.strip(), "config": vars(args), "sets_per_s": sets_per_s,
+                "ms_per_batch": {k: v / n_timed for k, v in stage_ms.items()},
+                "launches_per_batch": total / (n_timed + 1), "launches_by": per_batch,
+                "busy_ms": busy_ms, "batch_ms": batch_ms, "aten_ops": host_ops,
+                "device_ms_by_name": {k: us / 1e3 for k, us in top}, "peak_bytes": peak,
+                "kernels": krows, "clusters": clusters,
+            }, f, indent=1)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({

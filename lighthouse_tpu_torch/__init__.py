@@ -7,8 +7,10 @@ framework-free modules lives here as its own copy, pinned by tests).
 
 The first slice ports batched BLS12-381 signature-set verification
 (``bls.backend.verify_indexed_sets_device``). Every field multiply on that
-path runs through one hand-written CUDA kernel (``csrc/fused_mul.cu``, bound
-in ``ops/bls/fused_mul.py``), the port of the reference's only Pallas kernel.
+path runs through the two hand-written CUDA kernels of ``csrc/fused_mul.cu``
+(bound in ``ops/bls/fused_mul.py``), the port of the reference's only Pallas
+kernel: the plan kernel (one multiply step, input lincombs included) and the
+chain kernel (a whole fixed-exponent chain in one launch).
 
 Device rule: every entry point takes ``device=``; the default is CUDA, and
 with no CUDA device the default raises — nothing drops to the CPU unless the

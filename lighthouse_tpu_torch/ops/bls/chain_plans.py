@@ -5,13 +5,17 @@ Port of ``lighthouse_tpu/ops/bls/chain_plans.py``. ``wnaf_digits``,
 reference by tests). The executors replace the reference's ``lax.scan`` /
 ``fori_loop`` with Python loops over the host-known segments, and its
 device-side table gathers with static indexing: the digit of every chain at
-every segment is a host constant.
+every segment is a host constant. ``field_chain_program`` encodes the field
+executor's loop as a step program that the chain kernel runs in one launch
+(``fused_mul.run_chain``); ``run_field_chains`` stays as the step loop that
+program is held to.
 """
 
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 
@@ -219,3 +223,38 @@ def run_field_chains(schedule: ChainSchedule, bases, sqr_fn, mul_fn, one_arr, mu
             acc = sqr_fn(acc)
         acc = mul_fn(acc, _gather_static(entries, col, schedule))
     return acc
+
+
+def field_chain_program(name: str, schedule: ChainSchedule, sqr_sched, mul_sched, one_arr):
+    """``run_field_chains`` as a chain-kernel step program (fused_mul.
+    ChainProgram), operand for operand: slot 0 the identity, slot 1 the
+    base, slots 2.. the ladder's table entries (slot k = table position k),
+    the last slot the accumulator. ``sqr_sched``/``mul_sched`` are the plan
+    schedules behind the loop's sqr_fn/mul_fn."""
+    from .fused_mul import COPY, ChainProgram
+
+    if schedule.signed or any(schedule.negate):
+        raise ValueError("field chains take unsigned schedules")
+    scheds = (mul_sched,) if sqr_sched is mul_sched else (mul_sched, sqr_sched)
+    MUL, SQR = 0, len(scheds) - 1
+    n_slots = len(schedule.table_slots())
+    C = schedule.n_chains
+    steps = []
+    n = 2  # entries built: the identity and the base
+    while n < n_slots:
+        take = min(n - 1, n_slots - n)
+        steps += [(MUL, n + j, n - 1, (1 + j,) * C) for j in range(take)]
+        n += take
+    acc = n_slots
+
+    def gather(col):
+        return tuple(schedule.slot_index(d) for d in col)
+
+    steps.append((COPY, acc, acc, gather(schedule.segments[0][1])))
+    for run, col in schedule.segments[1:]:
+        steps += [(SQR, acc, acc, (acc,) * C)] * run
+        steps.append((MUL, acc, acc, gather(col)))
+    one = np.asarray(one_arr, dtype=np.int64).reshape(-1, 25)
+    return ChainProgram(
+        name, scheds, C, one.shape[0], n_slots + 1, 1, acc, steps, one=one, slot_one=0
+    )

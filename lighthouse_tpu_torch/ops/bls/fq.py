@@ -10,8 +10,10 @@ proved here against 2^63 (``_CAP``), and a bound that fails raises.
   operand budget is values < 1200p, limbs < 2^22 (``_IN_VALUE``/``_IN_LIMB``).
 * ``mont_mul``/``mont_mul_lazy`` (names kept from the reference) are the fused
   multiply: digit convolution, congruence folds and carry rounds in ONE launch
-  of the hand-written CUDA kernel (``fused_mul.py``). The output is
+  of the hand-written CUDA plan kernel (``fused_mul.py``). The output is
   public-bounded: value <= 13p, 17-bit limbs, top limb <= 2.
+* ``pow_fixed_scan`` (``inv``, ``sqrt_candidate``) runs its whole chain of
+  lazy multiplies as ONE launch of the chain kernel.
 * ``canonical`` finishes the reduction to < p with the statically scheduled
   fold/carry walk ``reduce_limbs`` (int64 torch ops outside the kernel, as in
   the reference, where it is u64 XLA code).
@@ -508,7 +510,7 @@ _cert("chain_in_budget_value", CHAIN_VALUE_LIMIT, _IN_VALUE)
 
 def mont_mul(a, b):
     """a*b mod p (plain domain; the reference's name). Operands within the
-    lazy budget; output at plans.PUB_BOUND. One fused kernel launch."""
+    lazy budget; output at plans.PUB_BOUND. One plan-kernel launch."""
     from . import fused_mul
 
     return fused_mul.fused_mul(a, b, lazy=False)
@@ -519,7 +521,8 @@ def mont_sqr(a):
 
 
 def mont_mul_lazy(a, b):
-    """Chain-interior product: chain-bound operands and output."""
+    """Chain-interior product: chain-bound operands and output (the step of
+    pow_fixed_scan's chain, which the chain kernel runs in-launch)."""
     from . import fused_mul
 
     return fused_mul.fused_mul(a, b, lazy=True)
@@ -551,29 +554,38 @@ def canonical(a):
 # --------------------------------------------------------------------------------------
 
 
-def pow_fixed_scan(a, e: int):
+@functools.lru_cache(maxsize=None)
+def _pow_program(e: int, name: str):
+    from . import chain_plans, fused_mul
+
+    k2 = fused_mul.mul_schedule(True)
+    sched = chain_plans.compile_chains((e,), signed=False)
+    return chain_plans.field_chain_program(name, sched, k2, k2, ONE_M)
+
+
+def pow_fixed_scan(a, e: int, name: str):
     """a^e for a host-fixed exponent through the chain compiler, with lazy
-    interior bounds; only the result pays the full normalization walk."""
-    from . import chain_plans
+    interior bounds: the whole chain is ONE chain-kernel launch (its steps
+    are K2 multiplies); only the result pays the full normalization walk.
+    ``name`` names the chain program (launch counts, ``fused_mul.CHAINS``):
+    one name per exponent."""
+    from . import fused_mul
 
     a = reduce_limbs(
         a, [_IN_LIMB] * a.shape[-1], _IN_VALUE, CHAIN_VALUE_LIMIT, CHAIN_LIMB_TARGET
     )
-    sched = chain_plans.compile_chains((int(e),), signed=False)
-    out = chain_plans.run_field_chains(
-        sched, a[None, ..., None, :], mont_sqr_lazy, mont_mul_lazy, ONE_M
-    )[0, ..., 0, :]
+    out = fused_mul.run_chain(_pow_program(int(e), name), a[None, ..., None, :])[0, ..., 0, :]
     return reduce_limbs(out, [CHAIN_LIMB_TARGET] * NLIMBS, CHAIN_VALUE_LIMIT)
 
 
 def inv(a):
     """Field inverse via Fermat (a^(p-2)); inv(0) = 0."""
-    return pow_fixed_scan(a, P - 2)
+    return pow_fixed_scan(a, P - 2, "inv")
 
 
 def sqrt_candidate(a):
     """a^((p+1)/4) — a square root when a is a QR (p = 3 mod 4)."""
-    return pow_fixed_scan(a, (P + 1) // 4)
+    return pow_fixed_scan(a, (P + 1) // 4, "sqrt_candidate")
 
 
 def sgn0(a):

@@ -1,38 +1,59 @@
-"""The fused field multiply: host-side schedules, the CUDA kernel's wrapper and
-its plain PyTorch version.
+"""The fused field multiply: host-side schedules, the two CUDA kernels'
+wrappers and their plain PyTorch versions.
 
 Replaces the TPU kernel ``lighthouse_tpu/ops/bls/pallas_kernels.py:_build_call``
 (its ``pl.pallas_call``), entered through ``fused_mul`` (behind
-``fq.mont_mul``/``fq.mont_mul_lazy``: kernels K1/K2) and ``execute_plan``
-(behind ``plans.execute``: K3). The kernel is ``csrc/fused_mul.cu``, CUDA C++
-for ``sm_90a``, built with nvcc into a shared library on first use and bound
-with ctypes. It computes the same function as the Pallas kernel:
+``fq.mont_mul``/``fq.mont_mul_lazy``: entries K1/K2) and ``execute_plan``
+(behind ``plans.execute``: K3). The kernels are in ``csrc/fused_mul.cu``,
+CUDA C++ for ``sm_90a``, built with nvcc into a shared library on first use
+and bound with ctypes:
 
-    int64 limb planes (after the host-side input lincombs)
-      -> base-2^8 digits -> 51x51 digit convolution per lane
-      -> pre-split schedule -> optional [R, L(+n_pass)] output map
-         (positive / negative coefficient matrices, digit-space borrow
-         constants == 0 mod p, pass-through rows of the raw ``a``)
-      -> post schedule of splits, trims and congruence folds
-      -> int64 limbs [rows, R, 25]
+* the **plan kernel** runs one multiply step per row, input lincombs
+  included (K1 and K3 launches; K1/K2 are the step with L = 1 and an
+  identity lincomb):
+
+      raw int64 limbs a [rows, n_a, 25], b [rows, n_b, 25] (+ constant pool)
+        -> lane operands: signed (index, coefficient) lists + borrow
+           constants, int64 (the tables of plans.lincomb_tables)
+        -> base-2^8 digits -> 51x51 digit convolution per lane
+        -> pre-split schedule -> optional [R, L(+n_pass)] output map
+           (signed coefficients, digit-space borrow constants == 0 mod p,
+           pass-through rows of the raw ``a``)
+        -> post schedule of splits, trims and congruence folds
+        -> int64 limbs [rows, R, 25]
+
+  A warp owns a lane (and later an output row); the lanes of a row are
+  split over a thread-block cluster of C CTAs, which read each other's lane
+  planes through distributed shared memory for the output map. C is picked
+  here from rows x L against the card's 132 SMs (``cluster_size``).
+* the **chain kernel** runs a whole fixed-exponent chain (``ChainProgram``:
+  the table ladder, the gathers and every squaring and multiply of
+  ``chain_plans.run_field_chains`` or the |x| unroll) in ONE launch, each
+  step the plan kernel's body, with the accumulator and table resident in
+  shared memory. Its users: ``fq.pow_fixed_scan`` (K2 steps),
+  ``tower._sqrt_chain`` (SQR2/MUL2 at the chain bound) and
+  ``tower.fq12_cyclotomic_exp_abs_x`` (CYC_SQR/MUL12).
 
 The schedules are derived here exactly as the reference derives them
 (``_DState``, ``_reduce_schedule``, ``_final_certs``, ``_dsubc_wide`` and the
 bound walks of ``fused_mul``/``execute_plan`` are copies), cached per static
-signature, and replayed by the kernel. Every intermediate is proven below
-2^24, so the kernel's int32 arithmetic is exact.
+signature, encoded once into int32/int64 tables and uploaded once per
+device. Every digit intermediate is proven below 2^24, so the kernels' int32
+arithmetic is exact.
 
-What bounds the kernel on the H100: at the verify path's shapes (one to a few
-thousand rows, 1 to 54 lanes) neither memory traffic nor int32 operations —
-a launch is microseconds of fixed cost, and the path makes thousands of them.
-The design keeps conv, output map and reduction inside one launch per field
-op with every plane in shared memory; CUDA graphs and wider blocks are later
-work.
+What bounds the kernels on the H100: at the verify path's shapes (one to a
+few hundred rows, 1 to 54 lanes) neither memory traffic nor int32
+operations but the latency of a step's dependent phases and, before this
+design, a launch per step; see the source's header.
 
-Beside the kernel: ``plain_fused`` replays the same schedule on int64 torch
-tensors. The wrapper ``run_fused`` takes it only for CPU tensors; for a CUDA
-tensor it launches the kernel or raises. ``launches`` counts kernel launches,
-``plain_calls`` calls of the plain version.
+Beside the kernels: ``plain_fused`` (lanes in) and ``plain_plan`` (raw
+operands in, lincombs by ``plans.apply_tables`` from the schedule's tables,
+not from their encoding) replay the same schedule on int64 torch tensors,
+so holding a kernel against them also checks the encoding; ``plain_chain``
+replays a chain program step by step. The wrappers ``run_fused`` and
+``run_chain`` take the plain versions only for CPU tensors; for a CUDA
+tensor they launch the kernel or raise. ``launches`` counts kernel
+launches, ``plain_calls`` calls of the plain version.
 """
 
 from __future__ import annotations
@@ -46,7 +67,7 @@ import subprocess
 import numpy as np
 import torch
 
-from . import fq
+from . import fq, plans
 from ...oracle.fields import P
 
 _D = 51                 # digits per 25-limb element
@@ -55,16 +76,26 @@ _FOLD_BASE = 48         # digit position of 2^384
 _F32_CAP = (1 << 24) - 1  # the reference's f32 exactness cap, kept as the bound
 _N_FOLD8 = 64
 _OUT_D = 50             # output digit positions (25 limbs)
+_W_MAX = 128            # widest digit plane the kernel's warp mapping covers
 
 # launch limit of dynamic shared memory per block on the H100 (sm_90)
 SMEM_LIMIT = 232448
+N_SMS = 132             # streaming multiprocessors of an H100 SXM
+MAX_CLUSTER = 8         # portable thread-block cluster size
+_MAX_WARPS = 8
+_SCR_WORDS = 500        # per-warp scratch of the kernels, int32 words
 
 launches = 0      # kernel launches (CUDA tensors)
 plain_calls = 0   # plain-version calls (CPU tensors, or chip-side comparisons)
-# kernel launches by entry: "K1" fused_mul, "K2" fused_mul(lazy), "K3" execute_plan
-launches_by = {"K1": 0, "K2": 0, "K3": 0}
-# (kind, schedule name, rows) -> launches: the shapes the path gives the kernel
+# kernel launches by entry: "K1" fused_mul, "K2" fused_mul(lazy), "K3"
+# execute_plan (plan kernel); "CHAIN" a fixed-exponent chain (chain kernel)
+launches_by = {"K1": 0, "K2": 0, "K3": 0, "CHAIN": 0}
+# (kind, schedule label or chain name, rows) -> launches: the shapes the path
+# gives the kernels
 launch_log: dict = {}
+# schedule label -> Schedule: every plan signature prepared so far (a label is
+# the call site's name, suffixed "#k" when one name has k bound signatures)
+SCHEDULES: dict = {}
 
 
 def reset_counts() -> None:
@@ -74,6 +105,14 @@ def reset_counts() -> None:
     for k in launches_by:
         launches_by[k] = 0
     launch_log.clear()
+
+
+def _count(kind: str, label: str, rows: int) -> None:
+    global launches
+    launches += 1
+    launches_by[kind] += 1
+    key = (kind, label, rows)
+    launch_log[key] = launch_log.get(key, 0) + 1
 
 
 def _int_to_digits(x: int, n: int) -> list[int]:
@@ -255,18 +294,40 @@ def _encode(ops) -> list[int]:
     return out
 
 
-class Schedule:
-    """One static call signature of the kernel: schedules, output map and
-    their device copies (uploaded once per device)."""
 
-    def __init__(self, kind, name, L, pre_ops, post_ops, out=None, n_pass=0):
+class Schedule:
+    """One static call signature of the plan kernel: input lincomb tables,
+    schedules and output map, their int32/int64 encoding and its device
+    copies (uploaded once per device).
+
+    ``lin`` is (lin_a, lin_b): the (m_pos, m_neg, consts) tables of
+    ``plans.lincomb_tables`` for A over a's n_a rows and for B over b's n_b
+    rows followed by ``plan``'s constant pool. None is the identity lincomb
+    of K1/K2 (L = n_a = n_b = 1). ``in_bounds`` holds, for a and for b, the
+    (limb, value, top limb) maxima the schedule was proved for."""
+
+    def __init__(self, kind, name, L, pre_ops, post_ops, out=None, n_pass=0, lin=None,
+                 plan=None, in_bounds=None):
         self.kind = kind
         self.name = name
+        self.label = name
         self.L = L
         self.pre_ops = tuple(pre_ops)
         self.post_ops = tuple(post_ops)
         self.n_pass = n_pass
         self.has_out = out is not None
+        self.identity = lin is None
+        self.in_bounds = in_bounds
+        self.plan = plan
+        if lin is None:
+            one, zero = np.ones((1, 1), np.int64), np.zeros((1, 1), np.int64)
+            c0 = np.zeros((1, fq.NLIMBS), np.int64)
+            lin = ((one, zero, c0), (one, zero, c0))
+        self.lin_a, self.lin_b = lin
+        consts = plan.consts if plan is not None else ()
+        self.pool = np.array([fq.int_to_limbs(c) for c in consts], np.int64).reshape(-1, fq.NLIMBS)
+        self.n_a = self.lin_a[0].shape[1]
+        self.n_b = self.lin_b[0].shape[1] - len(self.pool)
         w_mid, wide_pre = _widths(self.pre_ops, _CONV_D)
         self.w_mid = w_mid
         if self.has_out:
@@ -281,35 +342,94 @@ class Schedule:
         self.w_out = w_out
         self.wmax = max(wide_pre, wide_post)
         fq._cert("pallas_out_digits", w_out, _OUT_D)
-        slots = max(L + n_pass, self.R)
-        self.smem_bytes = (2 * L * _D + 2 * slots * self.wmax) * 4
-        fq._cert("cuda_smem_bytes", self.smem_bytes, SMEM_LIMIT, note=f"L={L}")
-        self.ops_np = np.array(
-            _encode(self.pre_ops) + _encode(self.post_ops) + [0], dtype=np.int32
-        )
+        fq._cert("cuda_plane_width", self.wmax, _W_MAX, note=name)
+        self.ints, self.i64, self.offs = self._encode()
         self._dev: dict = {}
+        self._shape = {}
+        for C in (1, 2, 4, MAX_CLUSTER):
+            smem = self.smem_bytes(C)
+            fq._cert("cuda_smem_bytes", smem, SMEM_LIMIT, note=f"{name} L={L} C={C}")
+            self._shape[C] = (self.threads(C), smem)
 
-    def device_tables(self, device):
-        """(ops, f8, mpos, mneg, oconst) as int32 tensors on ``device``."""
+    # -- launch shape --------------------------------------------------------------
+
+    def lanes_per_cta(self, C: int) -> int:
+        return -(-self.L // C)
+
+    def threads(self, C: int) -> int:
+        """One warp per lane of the CTA's share (phase 1) and per output row
+        of its share (phase 2), at most 8."""
+        rows = -(-self.R // C) if self.has_out else 0
+        return 32 * min(_MAX_WARPS, max(self.lanes_per_cta(C), rows, 1))
+
+    @property
+    def plane_stride(self) -> int:
+        """Words between digit planes in shared memory (16-byte aligned)."""
+        return -(-self.wmax // 4) * 4
+
+    def smem_bytes(self, C: int) -> int:
+        """Dynamic shared memory of one CTA (csrc: lh_plan_smem_bytes): the
+        raw operands, the CTA's lane planes, at C > 1 every lane plane of
+        the row gathered for the output map, and the warps' scratch."""
+        io = -(-(self.n_a + self.n_b) * fq.NLIMBS * 8 // 16) * 16
+        planes = (self.lanes_per_cta(C) + (self.L if C > 1 else 0)) * self.plane_stride
+        return io + planes * 4 + (self.threads(C) // 32) * _SCR_WORDS * 4
+
+    # -- encoding ------------------------------------------------------------------
+
+    def _encode(self):
+        """ints: the ops, then per lincomb / output map a block of row starts
+        (absolute offsets) and the (index, signed coefficient) pairs of each
+        row, then the output map's digit borrow constants; i64: the A and B
+        borrow constants and the constant pool."""
+        ints = _encode(self.pre_ops) + _encode(self.post_ops)
+
+        def lists(pos, neg):
+            n = pos.shape[0]
+            start = len(ints)
+            ints.extend([0] * (n + 1))
+            for r in range(n):
+                ints[start + r] = len(ints)
+                for j in range(pos.shape[1]):
+                    c = int(pos[r, j]) - int(neg[r, j])
+                    if c:
+                        ints.extend((j, c))
+            ints[start + n] = len(ints)
+            return start
+
+        offs = {"off_ops": 0, "off_la": lists(*self.lin_a[:2]), "off_lb": lists(*self.lin_b[:2])}
+        if self.has_out:
+            offs["off_out"] = lists(self.mpos, self.mneg)
+            offs["off_oconst"] = len(ints)
+            ints.extend(int(v) for v in self.oconst.reshape(-1))
+        else:
+            offs["off_out"] = offs["off_oconst"] = 0
+        fq._cert("cuda_table_i32", max(abs(v) for v in ints), (1 << 31) - 1, note=self.name)
+        n_lc = self.L * fq.NLIMBS
+        offs.update(off_ca=0, off_cb=n_lc, off_pool=2 * n_lc)
+        i64 = np.concatenate(
+            [self.lin_a[2].reshape(-1), self.lin_b[2].reshape(-1), self.pool.reshape(-1)]
+        ).astype(np.int64)
+        return np.array(ints, dtype=np.int32), i64, offs
+
+    def device_desc(self, device) -> "_PlanDesc":
+        """The kernel's descriptor, its tables on ``device`` (kept alive here)."""
         hit = self._dev.get(device)
         if hit is None:
-            def up(a):
-                return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
-
-            dummy = np.zeros(1, dtype=np.int32)
-            hit = (
-                up(self.ops_np),
-                fq.dconst(_FOLD8_I32, torch.empty(0, device=device)),
-                up(self.mpos if self.has_out else dummy),
-                up(self.mneg if self.has_out else dummy),
-                up(self.oconst if self.has_out else dummy),
+            ints = torch.from_numpy(self.ints).to(device)
+            i64 = torch.from_numpy(self.i64).to(device)
+            desc = _PlanDesc(
+                ints.data_ptr(), i64.data_ptr(), self.L, self.R, self.n_a, self.n_b,
+                int(self.has_out), len(self.pre_ops), len(self.post_ops), self.w_mid,
+                self.wmax, **self.offs,
             )
+            hit = (desc, ints, i64)
             self._dev[device] = hit
-        return hit
+        return hit[0]
 
 
 # --------------------------------------------------------------------------------------
-# The plain PyTorch version (same schedule, int64 tensors)
+# The plain PyTorch versions (same schedule and tables, int64 tensors)
 # --------------------------------------------------------------------------------------
 
 
@@ -338,8 +458,8 @@ def _replay_plain(t, ops, f8):
 
 
 def plain_fused(sched: Schedule, A, B, Ain=None):
-    """The plain version of the kernel: A, B int64 limbs [rows, L, 25] (and
-    Ain [rows, n_pass, 25]) -> int64 limbs [rows, R, 25]."""
+    """The plain version from lane operands on: A, B int64 limbs
+    [rows, L, 25] (and Ain [rows, n_pass, 25]) -> int64 limbs [rows, R, 25]."""
     global plain_calls
     plain_calls += 1
     f8 = fq.dconst(_FOLD8_NP, A)
@@ -351,8 +471,7 @@ def plain_fused(sched: Schedule, A, B, Ain=None):
             pd = fq.to_digits(Ain)
             pd = torch.cat([pd, pd.new_zeros(pd.shape[:-1] + (w - _D,))], dim=-1)
             t = torch.cat([t, pd], dim=-2)
-        mpos = fq.dconst(sched.mpos, t)
-        pos = (mpos[None, :, :, None] * t[:, None]).sum(dim=2)
+        pos = (fq.dconst(sched.mpos, t)[None, :, :, None] * t[:, None]).sum(dim=2)
         if sched.has_neg:
             neg = (fq.dconst(sched.mneg, t)[None, :, :, None] * t[:, None]).sum(dim=2)
             t = pos + (fq.dconst(sched.oconst, t)[None] - neg)
@@ -364,36 +483,84 @@ def plain_fused(sched: Schedule, A, B, Ain=None):
     return t[..., 0::2] + (t[..., 1::2] << 8)
 
 
+def plain_plan(sched: Schedule, a, b):
+    """The plain version of the plan kernel: raw operands a [rows, n_a, 25],
+    b [rows, n_b, 25] -> int64 limbs [rows, R, 25]. The input lincombs run
+    in torch from the schedule's tables (plans.apply_tables and the plan's
+    constant pool), not from the encoded lists the kernel reads, so the
+    comparison on the card also holds the encoding to those tables."""
+    if sched.identity:
+        return plain_fused(sched, a, b)
+    A = plans.apply_tables(sched.lin_a, a)
+    B = plans.apply_tables(sched.lin_b, plans.append_const_pool(sched.plan, b))
+    return plain_fused(sched, A, B, a if sched.n_pass else None)
+
+
 # --------------------------------------------------------------------------------------
-# The CUDA kernel: build, bind, launch
+# The CUDA kernels: build, bind, launch
 # --------------------------------------------------------------------------------------
 
-_SRC = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "csrc", "fused_mul.cu",
+_CSRC = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "csrc"
 )
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_SRC)), "_build")
+_SRC = os.path.join(_CSRC, "fused_mul.cu")
+BUILD_DIR = os.path.join(os.path.dirname(_CSRC), "_build")
+_NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+    "-Xcompiler", "-fPIC",
+]
 _LIB = None
+
+_DESC_INTS = (
+    "L", "R", "n_a", "n_b", "has_out", "n_pre", "n_post", "w_mid", "wmax",
+    "off_ops", "off_la", "off_lb", "off_out", "off_oconst", "off_ca", "off_cb", "off_pool",
+)
+
+
+class _PlanDesc(ctypes.Structure):
+    """Mirror of ``struct PlanDesc`` in csrc/fused_mul.cu."""
+
+    _fields_ = [("ints", ctypes.c_void_p), ("i64", ctypes.c_void_p)] + [
+        (n, ctypes.c_int) for n in _DESC_INTS
+    ]
+
+
+class _ChainArgs(ctypes.Structure):
+    """Mirror of ``struct ChainArgs`` in csrc/fused_mul.cu."""
+
+    _fields_ = [
+        ("d", _PlanDesc * 2), ("prog", ctypes.c_void_p), ("one", ctypes.c_void_p),
+    ] + [
+        (n, ctypes.c_int)
+        for n in (
+            "n_steps", "step_len", "batch", "n_el", "n_state", "slot_one", "slot_base",
+            "slot_acc",
+        )
+    ]
+
+
+def _sources() -> list:
+    return sorted(
+        os.path.join(_CSRC, f) for f in os.listdir(_CSRC) if f.endswith((".cu", ".cuh"))
+    )
 
 
 def build(verbose: bool = False) -> str:
-    """Compile csrc/fused_mul.cu for sm_90a into BUILD_DIR (keyed by the
-    source's hash, so an edited source rebuilds). Returns the library path."""
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    """Compile csrc/fused_mul.cu for sm_90a into BUILD_DIR, keyed by the hash
+    of every source under csrc/ and the flags (an edit to any of them
+    rebuilds). Returns the library path."""
+    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    for path in _sources():
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
     os.makedirs(BUILD_DIR, exist_ok=True)
-    lib = os.path.join(BUILD_DIR, f"libfused_mul_{digest}.so")
+    lib = os.path.join(BUILD_DIR, f"libfused_mul_{h.hexdigest()[:16]}.so")
     if not os.path.exists(lib):
         nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
         if not os.path.exists(nvcc):
             nvcc = "nvcc"
         tmp = f"{lib}.{os.getpid()}.tmp"
-        cmd = [
-            nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-            "-shared", "-Xcompiler", "-fPIC", "-o", tmp, _SRC,
-        ]
-        if verbose:
-            cmd.insert(1, "-Xptxas=-v")
+        cmd = [nvcc] + (["-Xptxas=-v"] if verbose else []) + _NVCC_FLAGS + ["-o", tmp, _SRC]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed:\n{res.stdout}\n{res.stderr}")
@@ -407,61 +574,90 @@ def _lib():
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(build())
-        fn = lib.lh_fused_mul
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.lh_plan_launch.argtypes = [
+            ctypes.POINTER(_PlanDesc), vp, ll, ll, vp, ll, ll, vp, vp, i, i, i, ll, vp,
+        ]
+        lib.lh_plan_launch.restype = i
+        lib.lh_chain_launch.argtypes = [
+            ctypes.POINTER(_ChainArgs), vp, vp, vp, i, i, i, i, i, ll, vp,
+        ]
+        lib.lh_chain_launch.restype = i
+        lib.lh_plan_smem_bytes.argtypes = [i] * 7
+        lib.lh_plan_smem_bytes.restype = ll
+        lib.lh_chain_smem_bytes.argtypes = [i] * 5
+        lib.lh_chain_smem_bytes.restype = ll
+        for fn, ty in ((lib.lh_plan_desc_size, _PlanDesc), (lib.lh_chain_args_size, _ChainArgs)):
+            fn.restype = i
+            if fn() != ctypes.sizeof(ty):
+                raise RuntimeError(f"{ty.__name__}: ctypes layout != the CUDA struct")
         _LIB = lib
     return _LIB
 
 
-def cuda_fused(sched: Schedule, A, B, Ain=None):
-    """Launch the kernel on the current stream: A, B int64 [rows, L, 25]
-    (Ain [rows, n_pass, 25]) on one CUDA device -> int64 [rows, R, 25]."""
-    global launches
-    rows, L = A.shape[0], A.shape[1]
-    if A.dtype != torch.int64 or B.dtype != torch.int64:
-        raise TypeError("fused_mul kernel takes int64 limb planes")
-    if A.shape != (rows, sched.L, fq.NLIMBS) or B.shape != A.shape:
-        raise ValueError(f"fused_mul kernel: bad operand shapes {A.shape} {B.shape}")
-    if B.device != A.device:
+def cluster_size(rows: int, lanes: int) -> int:
+    """Thread-block cluster size for ``rows`` rows of ``lanes`` lanes: the
+    largest power of two up to 8 that leaves every CTA at least 4 lanes and
+    keeps rows x C CTAs within one wave of the 132 SMs (1 when the rows
+    already fill the card). Fewer lanes per CTA do not repay the cluster's
+    barrier and plane exchange: on the H100, CYC_SQR (18 lanes) at rows 1
+    is fastest at C = 4, and the 3-lane Fq2 chain slower at C = 2 than at 1."""
+    c = 1
+    while c < MAX_CLUSTER and 8 * c <= lanes and rows * 2 * c <= N_SMS:
+        c *= 2
+    return c
+
+
+def _check_operand(x, shape, what: str):
+    if x.dtype != torch.int64:
+        raise TypeError(f"fused_mul kernel takes int64 limb planes ({what}: {x.dtype})")
+    if tuple(x.shape) != shape:
+        raise ValueError(f"fused_mul kernel: bad {what} shape {tuple(x.shape)}, want {shape}")
+    if x.device.type != "cuda" or x.device.index not in (None, torch.cuda.current_device()):
+        raise ValueError(f"fused_mul kernel: {what} is not on the current CUDA device")
+
+
+def _inner_contiguous(x):
+    return x if x.stride(2) == 1 else x.contiguous()
+
+
+def cuda_fused(sched: Schedule, a, b, cluster: int | None = None):
+    """Launch the plan kernel on the current stream: raw operands
+    a [rows, n_a, 25], b [rows, n_b, 25] (any row and element strides, limbs
+    contiguous) on one CUDA device -> int64 [rows, R, 25]."""
+    rows = a.shape[0]
+    _check_operand(a, (rows, sched.n_a, fq.NLIMBS), "a")
+    _check_operand(b, (rows, sched.n_b, fq.NLIMBS), "b")
+    if b.device != a.device:
         raise ValueError("fused_mul kernel: operands on different devices")
-    if A.device.index not in (None, torch.cuda.current_device()):
-        raise ValueError("fused_mul kernel: operands are not on the current CUDA device")
-    A = A.contiguous()
-    B = B.contiguous()
-    if sched.n_pass:
-        if Ain is None or Ain.shape != (rows, sched.n_pass, fq.NLIMBS):
-            raise ValueError("fused_mul kernel: bad pass-through operand")
-        Ain = Ain.contiguous()
-    out = torch.empty((rows, sched.R, fq.NLIMBS), dtype=torch.int64, device=A.device)
+    a, b = _inner_contiguous(a), _inner_contiguous(b)
+    out = torch.empty((rows, sched.R, fq.NLIMBS), dtype=torch.int64, device=a.device)
     if rows == 0:
         return out
-    ops, f8, mpos, mneg, oconst = sched.device_tables(A.device)
-    stream = torch.cuda.current_stream(A.device).cuda_stream
-    err = _lib().lh_fused_mul(
-        A.data_ptr(), B.data_ptr(), Ain.data_ptr() if sched.n_pass else None,
-        f8.data_ptr(), mpos.data_ptr(), mneg.data_ptr(), oconst.data_ptr(),
-        ops.data_ptr(), out.data_ptr(),
-        rows, L, sched.n_pass, sched.R, int(sched.has_out), int(sched.has_neg),
-        len(sched.pre_ops), len(sched.post_ops), sched.wmax, stream,
+    C = cluster or (cluster_size(rows, sched.L) if sched.has_out else 1)
+    if C > 1 and not sched.has_out:
+        raise ValueError("fused_mul kernel: a cluster needs an output map")
+    threads, smem = sched._shape[C]
+    err = _lib().lh_plan_launch(
+        ctypes.byref(sched.device_desc(a.device)), a.data_ptr(), a.stride(0), a.stride(1),
+        b.data_ptr(), b.stride(0), b.stride(1), out.data_ptr(),
+        fq.dconst(_FOLD8_I32, a).data_ptr(), rows, C, threads, smem,
+        torch.cuda.current_stream(a.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"fused_mul kernel launch failed: CUDA error {err}")
-    launches += 1
-    launches_by[sched.kind] += 1
-    key = (sched.kind, sched.name, rows)
-    launch_log[key] = launch_log.get(key, 0) + 1
+        raise RuntimeError(f"plan kernel launch failed: CUDA error {err}")
+    _count(sched.kind, sched.label, rows)
     return out
 
 
-def run_fused(sched: Schedule, A, B, Ain=None):
-    """The wrapper: the plain version for CPU tensors; the CUDA kernel (or an
-    error) for CUDA tensors."""
-    if A.device.type == "cpu":
-        return plain_fused(sched, A, B, Ain)
-    if A.device.type != "cuda":
-        raise ValueError(f"fused_mul: unsupported device {A.device}")
-    return cuda_fused(sched, A, B, Ain)
+def run_fused(sched: Schedule, a, b):
+    """The plan kernel's wrapper: the plain version for CPU tensors; the
+    CUDA kernel (or an error) for CUDA tensors."""
+    if a.device.type == "cpu":
+        return plain_plan(sched, a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"fused_mul: unsupported device {a.device}")
+    return cuda_fused(sched, a, b)
 
 
 # --------------------------------------------------------------------------------------
@@ -483,17 +679,40 @@ def mul_schedule(lazy: bool) -> Schedule:
     state = _DState(_conv_state(dig, dig, name), in_value * in_value)
     ops, state = _reduce_schedule(state, value_limit, limb_target, name)
     _final_certs(state, value_limit, limb_target, name)
-    return Schedule("K2" if lazy else "K1", name, 1, ops, ())
+    top = min(in_limb, in_value >> (16 * 24))
+    bounds = ((in_limb, in_value - 1, top),) * 2
+    sched = Schedule("K2" if lazy else "K1", name, 1, ops, (), in_bounds=bounds)
+    SCHEDULES[sched.label] = sched
+    return sched
+
+
+def _batch_shape(a, b, k: int):
+    """The broadcast of a's and b's batch dims (all but the last k): equal
+    shapes (the path's usual case) skip torch.broadcast_shapes, which costs
+    ~15 us of host time per call."""
+    sa, sb = a.shape[:-k], b.shape[:-k]
+    return sa if sa == sb else torch.broadcast_shapes(sa, sb)
+
+
+def _rows(x, batch, n: int):
+    """x [..., n, 25] broadcast to ``batch`` as a [rows, n, 25] view (a copy
+    only when the broadcast batch dims do not fold into one stride)."""
+    if x.shape[:-2] != batch:
+        x = x.expand(batch + (n, fq.NLIMBS))
+    try:
+        return x.view(-1, n, fq.NLIMBS)
+    except RuntimeError:
+        return x.reshape(-1, n, fq.NLIMBS)
 
 
 def fused_mul(a, b, lazy: bool = False):
-    """a*b mod p in one fused launch (lazy=False: lazy-budget operands, output
-    at plans.PUB_BOUND — K1; lazy=True: chain-bound operands and output — K2)."""
-    a, b = torch.broadcast_tensors(a, b)
-    batch = a.shape[:-1]
-    A = a.reshape(-1, 1, fq.NLIMBS)
-    B = b.reshape(-1, 1, fq.NLIMBS)
-    out = run_fused(mul_schedule(bool(lazy)), A, B)
+    """a*b mod p in one plan-kernel launch (lazy=False: lazy-budget operands,
+    output at plans.PUB_BOUND — K1; lazy=True: chain-bound operands and
+    output — K2, which the path runs inside chains)."""
+    batch = _batch_shape(a, b, 1)
+    out = run_fused(
+        mul_schedule(bool(lazy)), _rows(a[..., None, :], batch, 1), _rows(b[..., None, :], batch, 1)
+    )
     return out.reshape(batch + (fq.NLIMBS,))
 
 
@@ -506,12 +725,10 @@ _PLAN_CACHE: dict = {}
 
 class _PreparedPlan:
     """Everything ``execute_plan`` derives statically for one plan and bound
-    signature: the input lincomb matrices, the constant pool and the kernel
+    signature: the input lincomb tables, the constant pool and the kernel
     schedule with its output map."""
 
     def __init__(self, plan, n_a, in_bound_a, in_bound_b, name, out_bound):
-        from . import plans
-
         kname = name or "plan"
         self.plan = plan  # keeps the plan (the cache key's id) alive
         L = len(plan.a_rows)
@@ -591,7 +808,11 @@ class _PreparedPlan:
         post_ops, out_state = _reduce_schedule(out_state, value_limit, limb_target, kname)
         _final_certs(out_state, value_limit, limb_target, kname)
         self.sched = Schedule(
-            "K3", kname, L, pre_ops, post_ops, (R, mpos, mneg, oconst), n_pass
+            "K3", kname, L, pre_ops, post_ops, (R, mpos, mneg, oconst), n_pass,
+            lin=(self.lin_a, self.lin_b), plan=plan,
+            in_bounds=tuple(
+                (bd.limb, bd.value_p * P - 1, bd.top) for bd in (in_bound_a, in_bound_b)
+            ),
         )
 
 
@@ -605,25 +826,191 @@ def prepare_plan(plan, n_a, in_bound_a, in_bound_b, name="", out_bound=None):
     if hit is None:
         hit = _PreparedPlan(plan, n_a, in_bound_a, in_bound_b, name, out_bound)
         _PLAN_CACHE[key] = hit
+        label, k = hit.sched.name, 1
+        while label in SCHEDULES:
+            k += 1
+            label = f"{hit.sched.name}#{k}"
+        hit.sched.label = label
+        SCHEDULES[label] = hit.sched
     return hit
 
 
 def execute_plan(plan, a, b, in_bound_a, in_bound_b, name: str = "", out_bound=None):
     """The arm of plans.execute that the reference's Pallas backend takes:
-    input lincombs (torch, outside the kernel), then ONE kernel launch for
-    conv -> output map -> congruence folds -> carries (K3)."""
-    from . import plans
-
+    ONE plan-kernel launch for input lincombs -> conv -> output map ->
+    congruence folds -> carries (K3), on the raw operands."""
     prep = prepare_plan(plan, a.shape[-2], in_bound_a, in_bound_b, name, out_bound)
-    A = plans.apply_tables(prep.lin_a, a)
-    B = plans.apply_tables(prep.lin_b, plans.append_const_pool(plan, b))
-    A, B = torch.broadcast_tensors(A, B)
-    batch = A.shape[:-2]
-    L = A.shape[-2]
-    Ain = None
-    if prep.sched.n_pass:
-        Ain = a.expand(batch + a.shape[-2:]).reshape(-1, a.shape[-2], fq.NLIMBS)
-    out = run_fused(
-        prep.sched, A.reshape(-1, L, fq.NLIMBS), B.reshape(-1, L, fq.NLIMBS), Ain
-    )
+    batch = _batch_shape(a, b, 2)
+    out = run_fused(prep.sched, _rows(a, batch, a.shape[-2]), _rows(b, batch, b.shape[-2]))
     return out.reshape(batch + (prep.sched.R, fq.NLIMBS))
+
+
+# --------------------------------------------------------------------------------------
+# Fixed-exponent chains: the step program and the chain kernel
+# --------------------------------------------------------------------------------------
+
+COPY = -1  # step descriptor of a gather (no multiply)
+CHAINS: dict = {}  # chain name -> ChainProgram, every program built so far
+
+
+class ChainProgram:
+    """A fixed-exponent chain as the chain kernel's static step program.
+
+    Each row carries ``n_state`` slots of one element [n_el, 25]: the base,
+    optionally the identity, the table entries and the accumulator. A step
+    (desc, dst, src_a, src_b) computes slot dst = sched[desc](slot src_a,
+    slot src_b[chain]) for the row's chain (rows are chain-major: row r
+    belongs to chain r // (rows / n_chains)); desc ``COPY`` gathers slot
+    src_b[chain] into dst. Every multiply sees the operands of the step loop
+    it encodes, so the raw limbs equal that loop's."""
+
+    def __init__(self, name, scheds, n_chains, n_el, n_state, slot_base, slot_acc,
+                 steps, one=None, slot_one=-1):
+        if len(scheds) > 2:
+            raise ValueError("a chain program takes at most two step schedules")
+        for s in scheds:
+            if (s.n_a, s.n_b, s.R) != (n_el, n_el, n_el):
+                raise ValueError(f"{name}: step schedule {s.name} does not map slots to slots")
+        self.name = name
+        self.scheds = tuple(scheds)
+        self.n_chains = n_chains
+        self.n_el = n_el
+        self.n_state = n_state
+        self.slot_base = slot_base
+        self.slot_acc = slot_acc
+        self.slot_one = slot_one
+        self.one = None if one is None else np.ascontiguousarray(one, dtype=np.int64)
+        self.steps = tuple((d, dst, sa, tuple(sb)) for d, dst, sa, sb in steps)
+        self.prog = np.array(
+            [[d, dst, sa, *sb] for d, dst, sa, sb in self.steps], dtype=np.int32
+        )
+        self._dev: dict = {}
+        for C in (1, 2, 4, MAX_CLUSTER):
+            fq._cert("cuda_smem_bytes", self.launch_shape(C)[3], SMEM_LIMIT, note=f"{name} C={C}")
+        held = CHAINS.get(name)
+        if held is not None and not self._same(held):
+            raise ValueError(f"chain name {name!r} is held by a different program")
+        CHAINS[name] = self
+
+    def _same(self, other: "ChainProgram") -> bool:
+        return (
+            self.scheds == other.scheds and self.n_chains == other.n_chains
+            and self.n_el == other.n_el and self.steps == other.steps
+            and (self.slot_base, self.slot_acc, self.slot_one)
+            == (other.slot_base, other.slot_acc, other.slot_one)
+            and (self.one is None) == (other.one is None)
+            and (self.one is None or np.array_equal(self.one, other.one))
+        )
+
+    @property
+    def n_mults(self) -> int:
+        return sum(1 for d, *_ in self.steps if d != COPY)
+
+    def cluster(self, rows: int) -> int:
+        if not all(s.has_out for s in self.scheds):
+            return 1
+        return cluster_size(rows, max(s.L for s in self.scheds))
+
+    def launch_shape(self, C: int):
+        """(threads, lane_words, all_words, smem bytes) of one CTA at cluster
+        size C (csrc: lh_chain_smem_bytes): every CTA runs all R output rows
+        of a step (the state stays replicated), so a warp per lane of its
+        share or per output row; two buffers of its lane planes and, at
+        C > 1, the row's gathered planes."""
+        warps = max(max(s.lanes_per_cta(C), s.R if s.has_out else 1) for s in self.scheds)
+        threads = 32 * min(_MAX_WARPS, warps)
+        lane_words = max(s.lanes_per_cta(C) * s.plane_stride for s in self.scheds)
+        all_words = max(s.L * s.plane_stride for s in self.scheds) if C > 1 else 0
+        state = -(-(self.n_state + 1) * self.n_el * fq.NLIMBS * 8 // 16) * 16
+        smem = (
+            state + _N_FOLD8 * _FOLD_BASE * 4 + (2 * lane_words + all_words) * 4
+            + (threads // 32) * _SCR_WORDS * 4
+        )
+        return threads, lane_words, all_words, smem
+
+    def device_args(self, device) -> _ChainArgs:
+        hit = self._dev.get(device)
+        if hit is None:
+            prog = torch.from_numpy(self.prog).to(device)
+            one = torch.from_numpy(
+                self.one if self.one is not None else np.zeros(1, np.int64)
+            ).to(device)
+            descs = [s.device_desc(device) for s in self.scheds]
+            args = _ChainArgs()
+            for k, d in enumerate(descs):
+                args.d[k] = d
+            args.prog, args.one = prog.data_ptr(), one.data_ptr()
+            args.n_steps, args.step_len = len(self.steps), 3 + self.n_chains
+            args.n_el, args.n_state = self.n_el, self.n_state
+            args.slot_one, args.slot_base, args.slot_acc = (
+                self.slot_one, self.slot_base, self.slot_acc,
+            )
+            hit = (args, prog, one)
+            self._dev[device] = hit
+        return hit[0]
+
+
+def replay_chain(prog: ChainProgram, base, step):
+    """The step program replayed one plan step at a time through
+    ``step(sched, a, b)`` on base [rows, n_el, 25] (chain-major rows)."""
+    rows = base.shape[0]
+    batch = rows // prog.n_chains
+    state = {prog.slot_base: base}
+    if prog.slot_one >= 0:
+        state[prog.slot_one] = fq.dconst(prog.one, base).expand(base.shape)
+    for d, dst, sa, sb in prog.steps:
+        if len(set(sb)) == 1:
+            b = state[sb[0]]
+        else:
+            b = torch.cat([state[s][c * batch : (c + 1) * batch] for c, s in enumerate(sb)])
+        state[dst] = b if d == COPY else step(prog.scheds[d], state[sa], b)
+    return state[prog.slot_acc]
+
+
+def plain_chain(prog: ChainProgram, base):
+    """The plain version of the chain kernel: the program through
+    ``plain_plan``."""
+    return replay_chain(prog, base, plain_plan)
+
+
+def cuda_chain(prog: ChainProgram, base, cluster: int | None = None):
+    """Launch the chain kernel on the current stream: base int64
+    [rows, n_el, 25] (chain-major rows) -> the chains' results, same shape."""
+    rows = base.shape[0]
+    _check_operand(base, (rows, prog.n_el, fq.NLIMBS), "chain base")
+    if rows % prog.n_chains:
+        raise ValueError(f"{prog.name}: {rows} rows do not split into {prog.n_chains} chains")
+    base = base.contiguous()
+    out = torch.empty_like(base)
+    if rows == 0:
+        return out
+    C = cluster or prog.cluster(rows)
+    if C > 1 and not all(s.has_out for s in prog.scheds):
+        raise ValueError("chain kernel: a cluster needs output maps in every step")
+    threads, lane_words, all_words, smem = prog.launch_shape(C)
+    fq._cert("cuda_smem_bytes", smem, SMEM_LIMIT, note=prog.name)
+    args = prog.device_args(base.device)
+    args.batch = rows // prog.n_chains
+    err = _lib().lh_chain_launch(
+        ctypes.byref(args), base.data_ptr(), out.data_ptr(),
+        fq.dconst(_FOLD8_I32, base).data_ptr(), rows, C, threads, lane_words, all_words, smem,
+        torch.cuda.current_stream(base.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"chain kernel launch failed: CUDA error {err}")
+    _count("CHAIN", prog.name, rows)
+    return out
+
+
+def run_chain(prog: ChainProgram, bases):
+    """The chain kernel's wrapper: bases [n_chains, *batch, n_el, 25] -> the
+    per-chain results, same shape. The plain version for CPU tensors; the
+    CUDA kernel (or an error) for CUDA tensors."""
+    flat = bases.reshape(-1, prog.n_el, fq.NLIMBS)
+    if bases.device.type == "cpu":
+        out = plain_chain(prog, flat)
+    elif bases.device.type == "cuda":
+        out = cuda_chain(prog, flat)
+    else:
+        raise ValueError(f"chain kernel: unsupported device {bases.device}")
+    return out.reshape(bases.shape)

@@ -4,10 +4,11 @@ Port of ``lighthouse_tpu/ops/bls/plans.py`` (the builders are copies, pinned
 equal to the reference by tests). A multiplication in Fq2/Fq6/Fq12 is a
 bilinear map; Karatsuba decomposes it into L base-field products whose
 operands are small integer linear combinations of the input coefficients and
-whose outputs recombine linearly. A tower op then runs as
+whose outputs recombine linearly. A tower op then runs as ONE launch of the
+plan kernel (fused_mul.execute_plan) on the raw operands:
 
-    A = lincomb(a), B = lincomb(b)   # [..., L, 25] int64, torch, no carries
-    out = fused_mul.execute_plan     # ONE kernel: conv, output map, reduction
+    A = lincomb(a), B = lincomb(b)   # [L, 25] int64 per row, no carries
+    conv, output map, reduction      # per lane / per output row
 
 Subtraction never goes negative: a - b is a + (C - b) with C a
 borrow-inflated multiple of p dominating b's static limb bounds. Bounds
@@ -316,6 +317,7 @@ def lincomb_tables(rows: list[LC], n_in: int, in_bound: _Bound, name: str = "", 
 
 
 def apply_tables(tables, x):
+    """The lincomb in torch (the kernel applies the same tables itself)."""
     return _apply_matrices(*tables, x)
 
 
@@ -390,7 +392,7 @@ def carry_norm(x):
 def execute(plan: Plan, a, b, in_bound_a=PUB_BOUND, in_bound_b=PUB_BOUND, name="",
             out_bound: "_Bound | None" = None):
     """Run a plan: [..., n_out, 25] at PUB_BOUND (or ``out_bound``). The
-    reference's Pallas arm: input lincombs, then one fused kernel launch
+    reference's Pallas arm: one plan-kernel launch, input lincombs included
     (fused_mul.execute_plan)."""
     from . import fused_mul
 

@@ -4,12 +4,16 @@ Port of ``lighthouse_tpu/ops/bls/tower.py`` (Karabina compressed squaring is
 left out: it is opt-in and off by default in the reference). Flat layout:
 fq2 = [..., 2, 25], fq6 = [..., 6, 25], fq12 = [..., 12, 25] at the public
 bound (plans.PUB_BOUND), reduced mod p only at comparisons. Every multiply
-runs as one plan execution — one launch of the fused kernel. Tower layout
+runs as one plan execution — one launch of the plan kernel — except inside
+the fixed-exponent chains (the Fq2 square root, the |x| cyclotomic power),
+which run whole as one launch of the chain kernel. Tower layout
 matches the oracle: Fq2 = Fq[u]/(u^2+1), Fq6 = Fq2[v]/(v^3-(u+1)),
 Fq12 = Fq6[w]/(w^2-v).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -222,13 +226,26 @@ def _sqrt_constants():
 _ROOTS8, _SQRT_CF = _sqrt_constants()
 
 
-def _sqrt_chain(w):
-    """w^((q-9)/16) as the 2-lane joint Frobenius chain."""
-    from . import chain_plans
+@functools.lru_cache(maxsize=None)
+def _sqrt_program():
+    """The joint (w, conj(w)) Fq2 chain as a chain-kernel program: steps are
+    the fq2_sqr_lazy / fq2_mul_lazy plans (SQR2 / MUL2 at CHAIN_BOUND)."""
+    from . import chain_plans, fused_mul
 
+    cb = plans.CHAIN_BOUND
+    sqr = fused_mul.prepare_plan(plans.SQR2, 2, cb, cb, "fq2_sqr_c", cb).sched
+    mul = fused_mul.prepare_plan(plans.MUL2, 2, cb, cb, "fq2_mul_c", cb).sched
     sched = chain_plans.compile_chains((_SQRT_E0, _SQRT_E1), signed=False)
+    return chain_plans.field_chain_program("fq2_sqrt", sched, sqr, mul, one_np(2))
+
+
+def _sqrt_chain(w):
+    """w^((q-9)/16) as the 2-lane joint Frobenius chain: one chain-kernel
+    launch, then the product of the two chains."""
+    from . import fused_mul
+
     bases = torch.stack([w, plans.carry_norm(fq2_conj(w))])
-    out = chain_plans.run_field_chains(sched, bases, fq2_sqr_lazy, fq2_mul_lazy, one_np(2))
+    out = fused_mul.run_chain(_sqrt_program(), bases)
     return plans.execute(
         plans.MUL2, out[0], out[1], plans.CHAIN_BOUND, plans.CHAIN_BOUND, "sqrt_t"
     )
@@ -393,22 +410,37 @@ def fq12_cyclotomic_sqr_lazy(a, in_bound=None):
     return plans.execute(plans.CYC_SQR, a, a, bd, bd, "cyc_sqr_c", out_bound=ob)
 
 
-def fq12_cyclotomic_exp_abs_x(a):
-    """a^|x| (|x| = 0xd201000000010000): the |x| double-and-add schedule
-    unrolled on the host, lazy fq12 interiors, one public-bound walk at the
-    end (the reference's default, uncompressed arm)."""
+@functools.lru_cache(maxsize=None)
+def _cyc_exp_program():
+    """The |x| double-and-add unroll (curve.fixed_schedule(-x)) as a
+    chain-kernel program: slot 0 the base, slot 1 the accumulator; steps
+    CYC_SQR and MUL12 at the fq12 interior bound."""
+    from . import fused_mul
     from .curve import fixed_schedule
 
     segs = fixed_schedule(-_of.BLS_X)
     if segs[0] != (1, 1):
         raise ValueError("BLS |x| starts 0b11")
-    res = fq12_mul_lazy(fq12_cyclotomic_sqr_lazy(a), a)
-    for run, mul in segs[1:]:
-        for _ in range(run):
-            res = fq12_cyclotomic_sqr_lazy(res)
-        if mul:
-            res = fq12_mul_lazy(res, a)
-    return plans.carry_norm(res)
+    bd, ob = plans.f12_interior()
+    cyc = fused_mul.prepare_plan(plans.CYC_SQR, 12, bd, bd, "cyc_sqr_c", ob).sched
+    mul = fused_mul.prepare_plan(plans.MUL12, 12, bd, bd, "fq12_mul_c", ob).sched
+    CYC, MUL, BASE, ACC = 0, 1, 0, 1
+    steps = [(CYC, ACC, BASE, (BASE,)), (MUL, ACC, ACC, (BASE,))]
+    for run, mul_after in segs[1:]:
+        steps += [(CYC, ACC, ACC, (ACC,))] * run
+        if mul_after:
+            steps.append((MUL, ACC, ACC, (BASE,)))
+    return fused_mul.ChainProgram("cyc_exp_abs_x", (cyc, mul), 1, 12, 2, BASE, ACC, steps)
+
+
+def fq12_cyclotomic_exp_abs_x(a):
+    """a^|x| (|x| = 0xd201000000010000): the |x| double-and-add schedule
+    unrolled on the host and run as ONE chain-kernel launch, lazy fq12
+    interiors, one public-bound walk at the end (the reference's default,
+    uncompressed arm)."""
+    from . import fused_mul
+
+    return plans.carry_norm(fused_mul.run_chain(_cyc_exp_program(), a[None])[0])
 
 
 def fq12_is_one(a):

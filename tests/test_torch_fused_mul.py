@@ -10,6 +10,10 @@ Held here, with exact integer equality:
   reference's, for K1, K2 and every plan signature the verify path runs;
 * the plain version's RAW output limbs equal the reference kernel's, run in
   Pallas interpret mode, on random and edge inputs;
+* the plan kernel's plain version (input lincombs from the schedule's
+  tables) equals what the kernel computes from its encoded tables, and
+  those tables decode back to the schedule;
+* the wrapper's views, cluster sizes and ctypes layouts;
 * the copied builders, chain schedules and oracle equal the reference's.
 """
 
@@ -212,6 +216,160 @@ def test_execute_plan_raw_parity(name, get, bound, out_bound, monkeypatch):
     assert (sched.mpos == mpos.astype(np.int64)).all()
     assert (sched.mneg == mneg.astype(np.int64)).all()
     assert (sched.oconst == oconst.astype(np.int64)).all()
+
+
+def _decode(sched):
+    """The kernel's int32/int64 tables decoded back into dense matrices:
+    (A lincomb, A constants, B lincomb, B constants, constant pool, output
+    map or None, output digit constants or None)."""
+    ints, o = sched.ints, sched.offs
+
+    def dense(off, n_rows, n_cols):
+        m = np.zeros((n_rows, n_cols), dtype=np.int64)
+        for r in range(n_rows):
+            for k in range(int(ints[off + r]), int(ints[off + r + 1]), 2):
+                m[r, ints[k]] += int(ints[k + 1])
+        return m
+
+    n_lc = sched.L * 25
+    Ma = dense(o["off_la"], sched.L, sched.n_a)
+    Mb = dense(o["off_lb"], sched.L, sched.n_b + len(sched.pool))
+    ca = sched.i64[:n_lc].reshape(sched.L, 25)
+    cb = sched.i64[n_lc : 2 * n_lc].reshape(sched.L, 25)
+    pool = sched.i64[2 * n_lc :].reshape(-1, 25)
+    Mout = oconst = None
+    if sched.has_out:
+        Mout = dense(o["off_out"], sched.R, sched.L + sched.n_pass)
+        n_oc = sched.R * sched.w_mid
+        oconst = ints[o["off_oconst"] : o["off_oconst"] + n_oc].astype(np.int64)
+        oconst = oconst.reshape(sched.R, sched.w_mid)
+    return Ma, ca, Mb, cb, pool, Mout, oconst
+
+
+def _kernel_emulation(sched, a, b):
+    """What the kernel computes from its encoded tables, in int64 torch:
+    each lane operand sum_j c_j x_j + its constants, the digit conv and
+    pre-schedule, each output row sum_j c_j plane_j + its digit constants,
+    the post-schedule. (plain_plan builds the same from the schedule's own
+    tables instead.)"""
+    Ma, ca, Mb, cb, pool, Mout, oconst = (
+        None if m is None else torch.from_numpy(m) for m in _decode(sched)
+    )
+    b = torch.cat([b, pool.expand((b.shape[0],) + pool.shape)], dim=1)
+    A = (Ma[None, :, :, None] * a[:, None]).sum(dim=2) + ca
+    B = (Mb[None, :, :, None] * b[:, None]).sum(dim=2) + cb
+    f8 = torch.from_numpy(fm._FOLD8_NP)
+    t = fm._conv_digits(fq.to_digits(A), fq.to_digits(B))
+    t = fm._replay_plain(t, sched.pre_ops, f8)
+    if sched.has_out:
+        if sched.n_pass:
+            pd = fq.to_digits(a)
+            pd = torch.cat([pd, pd.new_zeros(pd.shape[:-1] + (t.shape[-1] - 51,))], dim=-1)
+            t = torch.cat([t, pd], dim=-2)
+        t = (Mout[None, :, :, None] * t[:, None]).sum(dim=2) + oconst
+        t = fm._replay_plain(t, sched.post_ops, f8)
+    t = torch.cat([t, t.new_zeros(t.shape[:-1] + (50 - t.shape[-1],))], dim=-1)
+    return t[..., 0::2] + (t[..., 1::2] << 8)
+
+
+@pytest.mark.parametrize("name,get,bound,out_bound", PLAN_CASES, ids=[c[0] for c in PLAN_CASES])
+def test_plain_plan_equals_composition(name, get, bound, out_bound):
+    """The plan kernel's plain version is the lanes-in composition
+    (plans.apply_tables and the constant pool in torch, then plain_fused),
+    and it equals what the kernel computes from its ENCODED tables (decoded
+    and applied here in torch): raw limbs, random inputs plus a row at the
+    input bound's maxima. (execute_plan, which runs plain_plan on the CPU,
+    is held to the reference's interpret-mode kernel by
+    test_execute_plan_raw_parity.)"""
+    plan, _ = get()
+    sched = fm.prepare_plan(plan, plan.n_a, bound, bound, name, out_bound).sched
+    a = _canon_rand((4, plan.n_a, 25))
+    b = _canon_rand((4, plan.n_b, 25))
+    a[0, :] = edge_limbs(bound.limb, bound.value_p * P - 1, bound.top)
+    b[0, :] = edge_limbs(bound.limb, bound.value_p * P - 1, bound.top)
+    a, b = convert.to_torch(a, "cpu"), convert.to_torch(b, "cpu")
+    A = plans.apply_tables(sched.lin_a, a)
+    B = plans.apply_tables(sched.lin_b, plans.append_const_pool(plan, b))
+    want = fm.plain_fused(sched, A, B, a if sched.n_pass else None)
+    got = fm.plain_plan(sched, a, b)
+    assert torch.equal(got, want)
+    assert torch.equal(_kernel_emulation(sched, a, b), got)
+
+
+@pytest.mark.parametrize(
+    "name,get,bound,out_bound",
+    PLAN_CASES + [("K1", None, None, None), ("K2", None, None, None)],
+    ids=[c[0] for c in PLAN_CASES] + ["K1", "K2"],
+)
+def test_kernel_tables_round_trip(name, get, bound, out_bound):
+    """The int32/int64 tables the kernel reads decode back to the schedule's
+    lincomb matrices (m_pos - m_neg), borrow constants, constant pool,
+    output map (mpos - mneg) and digit borrow constants; the ops replay the
+    schedule; every cluster size fits the shared-memory limit."""
+    if get is None:
+        sched = fm.mul_schedule(name == "K2")
+        plan = None
+    else:
+        plan, _ = get()
+        sched = fm.prepare_plan(plan, plan.n_a, bound, bound, name, out_bound).sched
+    Ma, ca, Mb, cb, pool, Mout, oconst = _decode(sched)
+    assert (Ma == sched.lin_a[0] - sched.lin_a[1]).all() and (ca == sched.lin_a[2]).all()
+    assert (Mb == sched.lin_b[0] - sched.lin_b[1]).all() and (cb == sched.lin_b[2]).all()
+    assert [fq.limbs_to_int(r) for r in pool] == (
+        [c % P for c in plan.consts] if plan is not None else []
+    )
+    if sched.has_out:
+        assert (Mout == sched.mpos - sched.mneg).all()
+        assert (oconst == sched.oconst).all()
+    ops = sched.ints[: len(sched.pre_ops) + len(sched.post_ops)].tolist()
+    assert ops == fm._encode(sched.pre_ops) + fm._encode(sched.post_ops)
+    assert sched.wmax <= fm._W_MAX
+    for C in (1, 2, 4, 8):
+        assert sched.smem_bytes(C) <= fm.SMEM_LIMIT and 32 <= sched.threads(C) <= 256
+
+
+def test_execute_plan_broadcast_and_views():
+    """Broadcast batch dims and strided views reach the plan kernel's
+    wrapper as [rows, n, 25] views (no lincomb in torch): the result equals
+    the same plan on explicitly expanded contiguous operands."""
+    a = convert.to_torch(_canon_rand((1, 12, 25)), "cpu")
+    b = convert.to_torch(_canon_rand((3, 2, 12, 25)), "cpu")
+    got = fm.execute_plan(plans.MUL12, a, b, plans.PUB_BOUND, plans.PUB_BOUND, "fq12_mul")
+    want = fm.execute_plan(
+        plans.MUL12, a.expand(3, 2, 12, 25).contiguous(), b, plans.PUB_BOUND, plans.PUB_BOUND,
+        "fq12_mul",
+    )
+    assert got.shape == (3, 2, 12, 25) and torch.equal(got, want)
+    wide = convert.to_torch(_canon_rand((4, 8, 25)), "cpu")
+    x, y = wide[:, 0:2], wide[:, 4:6]  # element-axis slices: strided rows
+    got = fm.execute_plan(plans.MUL2, x, y, plans.PUB_BOUND, plans.PUB_BOUND, "fq2_mul")
+    want = fm.execute_plan(
+        plans.MUL2, x.contiguous(), y.contiguous(), plans.PUB_BOUND, plans.PUB_BOUND, "fq2_mul"
+    )
+    assert torch.equal(got, want)
+    assert fm._rows(x, (4,), 2).data_ptr() == x.data_ptr()
+
+
+def test_cluster_size_rule():
+    """Rows x lanes against the 132 SMs, at least 4 lanes per CTA: rows 1
+    spread a 54-lane MUL12 over 8 CTAs and an 18-lane CYC_SQR over 4; 64 rows
+    of 18 lanes take 2; rows that fill the card, and plans of fewer than 8
+    lanes, take 1."""
+    assert fm.cluster_size(1, 54) == 8 and fm.cluster_size(1, 18) == 4
+    assert fm.cluster_size(64, 18) == 2 and fm.cluster_size(65, 10) == 2
+    assert fm.cluster_size(1, 6) == 1 and fm.cluster_size(1, 3) == 1
+    assert fm.cluster_size(128, 54) == 1 and fm.cluster_size(1, 1) == 1
+
+
+def test_ctypes_mirrors_match_the_cuda_structs():
+    """The ctypes descriptors have the C layout of csrc/fused_mul.cu's
+    PlanDesc (2 pointers, 17 ints, padded to 8 bytes: 88) and ChainArgs
+    (2 PlanDesc, 2 pointers, 8 ints: 224); the library checks the same
+    sizes when it loads."""
+    import ctypes
+
+    assert ctypes.sizeof(fm._PlanDesc) == 88
+    assert ctypes.sizeof(fm._ChainArgs) == 224
 
 
 # --------------------------------------------------------------------------------------
