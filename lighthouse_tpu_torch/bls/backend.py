@@ -1,8 +1,11 @@
 """Batched random-linear-combination signature-set verification on one GPU.
 
-Port of the single-device path of ``lighthouse_tpu/bls/tpu_backend.py``
-(``verify_indexed_sets_device`` and its three stages). The check is blst's
-``verify_multiple_aggregate_signatures``:
+Port of the single-device path of ``lighthouse_tpu/bls/tpu_backend.py``:
+``verify_indexed_sets_device`` and its three stages (the firehose's entry),
+and ``aggregate_pubkeys_device``, ``verify_signature_sets_device_h2c`` and
+``verify_signature_sets_device`` with the aggregation and prologue stages
+(the entry of ``lighthouse_tpu_torch.bls.verify_signature_sets``). The
+check is blst's ``verify_multiple_aggregate_signatures``:
 
     prod_i e(r_i * agg_pk_i, H(m_i)) * e(-g1, sum_i r_i * sig_i) == 1
 
@@ -56,6 +59,21 @@ def _set_prologue(pk_agg, sig, scalars, valid):
     return set_ok, pk_scaled, sig_sum
 
 
+def aggregate_stage(pts, mask):
+    """[n, k_pad, 3, 25] pubkey points + [n, k_pad] mask -> [n, 3, 25]
+    per-set sums (the masked tree of ``curve.point_sum``)."""
+    return curve.point_sum(1, pts.movedim(1, 0), mask.movedim(1, 0))
+
+
+def prologue_stage(pk_agg, sig, scalars, valid):
+    """The security prologue (subgroup checks, random scaling, masked
+    signature sum), ending in affine coordinates for the pairing stage."""
+    set_ok, pk_scaled, sig_acc = _set_prologue(pk_agg, sig, scalars, valid)
+    pkx, pky = g1.to_affine(pk_scaled)
+    sax, say = g2.to_affine(sig_acc)
+    return pkx, pky, sax, say, set_ok
+
+
 def h2c_stage(u0, u1):
     """Stage 1: SSWU + isogeny + cofactor clearing + affine message points."""
     return g2.to_affine(h2c.map_to_g2(u0, u1))
@@ -66,12 +84,9 @@ def prep_stage(cache, idx, mask, sxc0, sxc1, s_flag, sig_wf, scalars, valid):
     security prologue, ending in affine coordinates for the pairing."""
     x_mont = raw_to_mont(torch.stack([sxc0, sxc1], dim=-2))
     sig, on_curve = g2.decompress(x_mont, s_flag)
-    pts = cache[idx]  # [n, k, 3, 25]
-    pk_agg = curve.point_sum(1, pts.movedim(1, 0), mask.movedim(1, 0))
-    set_ok, pk_scaled, sig_acc = _set_prologue(pk_agg, sig, scalars, valid)
+    pk_agg = aggregate_stage(cache[idx], mask)  # cache[idx]: [n, k, 3, 25]
+    pkx, pky, sax, say, set_ok = prologue_stage(pk_agg, sig, scalars, valid)
     set_ok = set_ok & (~valid | (sig_wf & on_curve & torch.any(mask, dim=1)))
-    pkx, pky = g1.to_affine(pk_scaled)
-    sax, say = g2.to_affine(sig_acc)
     return pkx, pky, sax, say, set_ok
 
 
@@ -101,6 +116,16 @@ def scalars_to_torch(scalars: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a.view(np.int64).copy()).to(device)
 
 
+def _scalars(scalars, n_pad: int, n: int, device) -> torch.Tensor:
+    """Injected RLC scalars ([n_pad] uint64) checked, or fresh ones drawn."""
+    if scalars is None:
+        scalars = draw_scalars(n_pad)
+    scalars = np.asarray(scalars, dtype=np.uint64)
+    if scalars.shape != (n_pad,):
+        raise ValueError(f"scalars must have shape ({n_pad},) for {n} sets")
+    return scalars_to_torch(scalars, device)
+
+
 def prepare_batch(items, scalars=None, device=None) -> dict:
     """The host half: bucket padding, hash_to_field, signature parsing, RLC
     scalars. ``items`` is a list of (validator_indices, message, sig_bytes).
@@ -126,11 +151,6 @@ def prepare_batch(items, scalars=None, device=None) -> dict:
     if n_pad > n:  # pad by broadcast, not by hashing dummy messages
         u0 = torch.cat([u0, u0[:1].expand((n_pad - n,) + u0.shape[1:])])
         u1 = torch.cat([u1, u1[:1].expand((n_pad - n,) + u1.shape[1:])])
-    if scalars is None:
-        scalars = draw_scalars(n_pad)
-    scalars = np.asarray(scalars, dtype=np.uint64)
-    if scalars.shape != (n_pad,):
-        raise ValueError(f"scalars must have shape ({n_pad},) for {n} sets")
     valid = np.arange(n_pad) < n
 
     def t(a):
@@ -140,7 +160,7 @@ def prepare_batch(items, scalars=None, device=None) -> dict:
         "u0": u0, "u1": u1, "idx": t(idx), "mask": t(mask),
         "sxc0": t(parsed["x_c0"]), "sxc1": t(parsed["x_c1"]),
         "s_flag": t(parsed["s_flag"]), "sig_wf": t(sig_wf),
-        "scalars": scalars_to_torch(scalars, dev), "valid": t(valid),
+        "scalars": _scalars(scalars, n_pad, n, dev), "valid": t(valid),
     }
 
 
@@ -169,3 +189,41 @@ def verify_indexed_sets_device(cache, items, *, scalars=None, device=None) -> bo
     if not items:
         return False
     return bool(run_batch(cache, prepare_batch(items, scalars, dev)))
+
+
+def aggregate_pubkeys_device(pts: list, k_pad: int | None = None):
+    """List over sets of [k_i, 3, 25] pubkey points (one device) -> [n, 3, 25]
+    per-set aggregates: the sets padded to ``k_pad`` (default
+    bucket(max k_i)) with masked zeros, then ``aggregate_stage``."""
+    n = len(pts)
+    k_pad = k_pad or bucket(max((p.shape[0] for p in pts), default=1))
+    dev = pts[0].device
+    buf = torch.zeros((n, k_pad, 3, fq.NLIMBS), dtype=torch.int64, device=dev)
+    mask = np.zeros((n, k_pad), dtype=bool)
+    for i, p in enumerate(pts):
+        buf[i, : p.shape[0]] = p
+        mask[i, : p.shape[0]] = True
+    return aggregate_stage(buf, torch.from_numpy(mask).to(dev))
+
+
+def verify_signature_sets_device(pk_agg, sig, msg_x, msg_y, n_real: int, *, scalars=None) -> bool:
+    """pk_agg [n, 3, 25], sig [n, 6, 25] (projective), message points affine
+    msg_x/msg_y [n, 2, 25], all on one device; the first ``n_real`` entries
+    are real. ``scalars`` ([n] uint64) injects the RLC scalars; None draws
+    them."""
+    n = pk_agg.shape[0]
+    if n_real == 0:
+        return False
+    dev = pk_agg.device
+    valid = torch.arange(n, device=dev) < n_real
+    pkx, pky, sax, say, set_ok = prologue_stage(pk_agg, sig, _scalars(scalars, n, n_real, dev), valid)
+    return bool(pair_stage(pkx, pky, sax, say, msg_x, msg_y, set_ok, valid))
+
+
+def verify_signature_sets_device_h2c(pk_agg, sig, u0, u1, n_real: int, *, scalars=None) -> bool:
+    """``verify_signature_sets_device`` with the h2c stage in front: takes the
+    messages' hash_to_field residues u0/u1 [n, 2, 25]."""
+    if n_real == 0:
+        return False
+    mx, my = h2c_stage(u0, u1)
+    return verify_signature_sets_device(pk_agg, sig, mx, my, n_real, scalars=scalars)

@@ -150,8 +150,9 @@ def inf_np(k: int) -> np.ndarray:
     return _INF[k]
 
 
-def inf_point(k: int, shape=(), device="cpu"):
-    """(0 : 1 : 0), broadcast to ``shape``."""
+def inf_point(k: int, shape, device):
+    """(0 : 1 : 0) on ``device`` (no default, as ``tower.one``), broadcast to
+    ``shape``."""
     t = torch.from_numpy(inf_np(k)).to(device)
     return t.expand(tuple(shape) + (3 * k, fq.NLIMBS))
 

@@ -76,6 +76,13 @@ def int_to_limbs(x: int) -> np.ndarray:
     )
 
 
+def ints_to_limbs(xs) -> np.ndarray:
+    """Python ints in [0, 2^400) -> int64 [len(xs), 25] little-endian 16-bit
+    limbs, through one byte buffer (no per-limb Python)."""
+    buf = b"".join(x.to_bytes(2 * NLIMBS, "little") for x in xs)
+    return np.frombuffer(buf, dtype="<u2").reshape(-1, NLIMBS).astype(np.int64)
+
+
 def limbs_to_int(a) -> int:
     """Limb array (last axis 25, any non-negative limb values) -> Python int."""
     a = np.asarray(a)

@@ -54,6 +54,12 @@ replays a chain program step by step. The wrappers ``run_fused`` and
 ``run_chain`` take the plain versions only for CPU tensors; for a CUDA
 tensor they launch the kernel or raise. ``launches`` counts kernel
 launches, ``plain_calls`` calls of the plain version.
+
+Threads: the firehose calls the kernels from its device thread and the
+supervisor's watchdog workers. One module lock (``_LOCK``) guards the
+build and load of the library, the plan cache with its label assignment,
+the per-device table uploads and every counter, so labels and counts do
+not depend on which thread arrives first.
 """
 
 from __future__ import annotations
@@ -63,6 +69,7 @@ import functools
 import hashlib
 import os
 import subprocess
+import threading
 
 import numpy as np
 import torch
@@ -85,6 +92,11 @@ MAX_CLUSTER = 8         # portable thread-block cluster size
 _MAX_WARPS = 8
 _SCR_WORDS = 500        # per-warp scratch of the kernels, int32 words
 
+# guards the library build and load, _PLAN_CACHE and SCHEDULES, the device
+# table caches and the counters below (re-entrant: a plan miss builds
+# schedules that register themselves)
+_LOCK = threading.RLock()
+
 launches = 0      # kernel launches (CUDA tensors)
 plain_calls = 0   # plain-version calls (CPU tensors, or chip-side comparisons)
 # kernel launches by entry: "K1" fused_mul, "K2" fused_mul(lazy), "K3"
@@ -100,19 +112,27 @@ SCHEDULES: dict = {}
 
 def reset_counts() -> None:
     global launches, plain_calls
-    launches = 0
-    plain_calls = 0
-    for k in launches_by:
-        launches_by[k] = 0
-    launch_log.clear()
+    with _LOCK:
+        launches = 0
+        plain_calls = 0
+        for k in launches_by:
+            launches_by[k] = 0
+        launch_log.clear()
 
 
 def _count(kind: str, label: str, rows: int) -> None:
     global launches
-    launches += 1
-    launches_by[kind] += 1
     key = (kind, label, rows)
-    launch_log[key] = launch_log.get(key, 0) + 1
+    with _LOCK:
+        launches += 1
+        launches_by[kind] += 1
+        launch_log[key] = launch_log.get(key, 0) + 1
+
+
+def _count_plain() -> None:
+    global plain_calls
+    with _LOCK:
+        plain_calls += 1
 
 
 def _int_to_digits(x: int, n: int) -> list[int]:
@@ -414,18 +434,19 @@ class Schedule:
 
     def device_desc(self, device) -> "_PlanDesc":
         """The kernel's descriptor, its tables on ``device`` (kept alive here)."""
-        hit = self._dev.get(device)
-        if hit is None:
-            ints = torch.from_numpy(self.ints).to(device)
-            i64 = torch.from_numpy(self.i64).to(device)
-            desc = _PlanDesc(
-                ints.data_ptr(), i64.data_ptr(), self.L, self.R, self.n_a, self.n_b,
-                int(self.has_out), len(self.pre_ops), len(self.post_ops), self.w_mid,
-                self.wmax, **self.offs,
-            )
-            hit = (desc, ints, i64)
-            self._dev[device] = hit
-        return hit[0]
+        with _LOCK:
+            hit = self._dev.get(device)
+            if hit is None:
+                ints = torch.from_numpy(self.ints).to(device)
+                i64 = torch.from_numpy(self.i64).to(device)
+                desc = _PlanDesc(
+                    ints.data_ptr(), i64.data_ptr(), self.L, self.R, self.n_a, self.n_b,
+                    int(self.has_out), len(self.pre_ops), len(self.post_ops), self.w_mid,
+                    self.wmax, **self.offs,
+                )
+                hit = (desc, ints, i64)
+                self._dev[device] = hit
+            return hit[0]
 
 
 # --------------------------------------------------------------------------------------
@@ -460,8 +481,7 @@ def _replay_plain(t, ops, f8):
 def plain_fused(sched: Schedule, A, B, Ain=None):
     """The plain version from lane operands on: A, B int64 limbs
     [rows, L, 25] (and Ain [rows, n_pass, 25]) -> int64 limbs [rows, R, 25]."""
-    global plain_calls
-    plain_calls += 1
+    _count_plain()
     f8 = fq.dconst(_FOLD8_NP, A)
     t = _conv_digits(fq.to_digits(A), fq.to_digits(B))  # [rows, L, 101]
     t = _replay_plain(t, sched.pre_ops, f8)
@@ -548,51 +568,55 @@ def _sources() -> list:
 def build(verbose: bool = False) -> str:
     """Compile csrc/fused_mul.cu for sm_90a into BUILD_DIR, keyed by the hash
     of every source under csrc/ and the flags (an edit to any of them
-    rebuilds). Returns the library path."""
-    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-    for path in _sources():
-        with open(path, "rb") as f:
-            h.update(os.path.basename(path).encode() + b"\0" + f.read())
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    lib = os.path.join(BUILD_DIR, f"libfused_mul_{h.hexdigest()[:16]}.so")
-    if not os.path.exists(lib):
-        nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-        if not os.path.exists(nvcc):
-            nvcc = "nvcc"
-        tmp = f"{lib}.{os.getpid()}.tmp"
-        cmd = [nvcc] + (["-Xptxas=-v"] if verbose else []) + _NVCC_FLAGS + ["-o", tmp, _SRC]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed:\n{res.stdout}\n{res.stderr}")
-        if verbose:
-            print(res.stdout + res.stderr, flush=True)
-        os.replace(tmp, lib)
-    return lib
+    rebuilds). Returns the library path. One build at a time per process."""
+    with _LOCK:
+        h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+        for path in _sources():
+            with open(path, "rb") as f:
+                h.update(os.path.basename(path).encode() + b"\0" + f.read())
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        lib = os.path.join(BUILD_DIR, f"libfused_mul_{h.hexdigest()[:16]}.so")
+        if not os.path.exists(lib):
+            nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+            if not os.path.exists(nvcc):
+                nvcc = "nvcc"
+            tmp = f"{lib}.{os.getpid()}.tmp"
+            cmd = [nvcc] + (["-Xptxas=-v"] if verbose else []) + _NVCC_FLAGS + ["-o", tmp, _SRC]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc failed:\n{res.stdout}\n{res.stderr}")
+            if verbose:
+                print(res.stdout + res.stderr, flush=True)
+            os.replace(tmp, lib)
+        return lib
 
 
 def _lib():
+    """The loaded library, built and bound on first use (once per process,
+    under ``_LOCK``)."""
     global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(build())
-        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.lh_plan_launch.argtypes = [
-            ctypes.POINTER(_PlanDesc), vp, ll, ll, vp, ll, ll, vp, vp, i, i, i, ll, vp,
-        ]
-        lib.lh_plan_launch.restype = i
-        lib.lh_chain_launch.argtypes = [
-            ctypes.POINTER(_ChainArgs), vp, vp, vp, i, i, i, i, i, ll, vp,
-        ]
-        lib.lh_chain_launch.restype = i
-        lib.lh_plan_smem_bytes.argtypes = [i] * 7
-        lib.lh_plan_smem_bytes.restype = ll
-        lib.lh_chain_smem_bytes.argtypes = [i] * 5
-        lib.lh_chain_smem_bytes.restype = ll
-        for fn, ty in ((lib.lh_plan_desc_size, _PlanDesc), (lib.lh_chain_args_size, _ChainArgs)):
-            fn.restype = i
-            if fn() != ctypes.sizeof(ty):
-                raise RuntimeError(f"{ty.__name__}: ctypes layout != the CUDA struct")
-        _LIB = lib
-    return _LIB
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(build())
+            vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib.lh_plan_launch.argtypes = [
+                ctypes.POINTER(_PlanDesc), vp, ll, ll, vp, ll, ll, vp, vp, i, i, i, ll, vp,
+            ]
+            lib.lh_plan_launch.restype = i
+            lib.lh_chain_launch.argtypes = [
+                ctypes.POINTER(_ChainArgs), vp, vp, vp, i, i, i, i, i, ll, vp,
+            ]
+            lib.lh_chain_launch.restype = i
+            lib.lh_plan_smem_bytes.argtypes = [i] * 7
+            lib.lh_plan_smem_bytes.restype = ll
+            lib.lh_chain_smem_bytes.argtypes = [i] * 5
+            lib.lh_chain_smem_bytes.restype = ll
+            for fn, ty in ((lib.lh_plan_desc_size, _PlanDesc), (lib.lh_chain_args_size, _ChainArgs)):
+                fn.restype = i
+                if fn() != ctypes.sizeof(ty):
+                    raise RuntimeError(f"{ty.__name__}: ctypes layout != the CUDA struct")
+            _LIB = lib
+        return _LIB
 
 
 def cluster_size(rows: int, lanes: int) -> int:
@@ -669,6 +693,12 @@ def run_fused(sched: Schedule, a, b):
 def mul_schedule(lazy: bool) -> Schedule:
     """The static schedule of ``fused_mul`` (the reference's bound walk)."""
     name = "pallas_mul_lazy" if lazy else "pallas_mul"
+    with _LOCK:  # the cache may miss in two threads at once: build once
+        held = SCHEDULES.get(name)
+        return held if held is not None else _new_mul_schedule(lazy, name)
+
+
+def _new_mul_schedule(lazy: bool, name: str) -> Schedule:
     if lazy:
         in_limb, in_value = fq.CHAIN_LIMB_TARGET, fq.CHAIN_VALUE_LIMIT
         value_limit, limb_target = fq.CHAIN_VALUE_LIMIT, fq.CHAIN_LIMB_TARGET
@@ -822,17 +852,18 @@ def prepare_plan(plan, n_a, in_bound_a, in_bound_b, name="", out_bound=None):
         id(plan), n_a, _bound_key(in_bound_a), _bound_key(in_bound_b), name,
         _bound_key(out_bound),
     )
-    hit = _PLAN_CACHE.get(key)
-    if hit is None:
-        hit = _PreparedPlan(plan, n_a, in_bound_a, in_bound_b, name, out_bound)
-        _PLAN_CACHE[key] = hit
-        label, k = hit.sched.name, 1
-        while label in SCHEDULES:
-            k += 1
-            label = f"{hit.sched.name}#{k}"
-        hit.sched.label = label
-        SCHEDULES[label] = hit.sched
-    return hit
+    with _LOCK:
+        hit = _PLAN_CACHE.get(key)
+        if hit is None:
+            hit = _PreparedPlan(plan, n_a, in_bound_a, in_bound_b, name, out_bound)
+            label, k = hit.sched.name, 1
+            while label in SCHEDULES:
+                k += 1
+                label = f"{hit.sched.name}#{k}"
+            hit.sched.label = label
+            SCHEDULES[label] = hit.sched
+            _PLAN_CACHE[key] = hit
+        return hit
 
 
 def execute_plan(plan, a, b, in_bound_a, in_bound_b, name: str = "", out_bound=None):
@@ -887,10 +918,11 @@ class ChainProgram:
         self._dev: dict = {}
         for C in (1, 2, 4, MAX_CLUSTER):
             fq._cert("cuda_smem_bytes", self.launch_shape(C)[3], SMEM_LIMIT, note=f"{name} C={C}")
-        held = CHAINS.get(name)
-        if held is not None and not self._same(held):
-            raise ValueError(f"chain name {name!r} is held by a different program")
-        CHAINS[name] = self
+        with _LOCK:
+            held = CHAINS.get(name)
+            if held is not None and not self._same(held):
+                raise ValueError(f"chain name {name!r} is held by a different program")
+            CHAINS[name] = self
 
     def _same(self, other: "ChainProgram") -> bool:
         return (
@@ -928,26 +960,33 @@ class ChainProgram:
         )
         return threads, lane_words, all_words, smem
 
-    def device_args(self, device) -> _ChainArgs:
-        hit = self._dev.get(device)
-        if hit is None:
-            prog = torch.from_numpy(self.prog).to(device)
-            one = torch.from_numpy(
-                self.one if self.one is not None else np.zeros(1, np.int64)
-            ).to(device)
-            descs = [s.device_desc(device) for s in self.scheds]
-            args = _ChainArgs()
-            for k, d in enumerate(descs):
-                args.d[k] = d
-            args.prog, args.one = prog.data_ptr(), one.data_ptr()
-            args.n_steps, args.step_len = len(self.steps), 3 + self.n_chains
-            args.n_el, args.n_state = self.n_el, self.n_state
-            args.slot_one, args.slot_base, args.slot_acc = (
-                self.slot_one, self.slot_base, self.slot_acc,
-            )
-            hit = (args, prog, one)
-            self._dev[device] = hit
-        return hit[0]
+    def device_args(self, device, batch: int) -> _ChainArgs:
+        """The kernel's arguments for ``batch`` rows per chain: a fresh copy
+        of the per-device template (its tables kept alive here), so threads
+        launching one program at different row counts share nothing
+        mutable."""
+        with _LOCK:
+            hit = self._dev.get(device)
+            if hit is None:
+                prog = torch.from_numpy(self.prog).to(device)
+                one = torch.from_numpy(
+                    self.one if self.one is not None else np.zeros(1, np.int64)
+                ).to(device)
+                descs = [s.device_desc(device) for s in self.scheds]
+                args = _ChainArgs()
+                for k, d in enumerate(descs):
+                    args.d[k] = d
+                args.prog, args.one = prog.data_ptr(), one.data_ptr()
+                args.n_steps, args.step_len = len(self.steps), 3 + self.n_chains
+                args.n_el, args.n_state = self.n_el, self.n_state
+                args.slot_one, args.slot_base, args.slot_acc = (
+                    self.slot_one, self.slot_base, self.slot_acc,
+                )
+                hit = (args, prog, one)
+                self._dev[device] = hit
+        args = _ChainArgs.from_buffer_copy(hit[0])
+        args.batch = batch
+        return args
 
 
 def replay_chain(prog: ChainProgram, base, step):
@@ -989,8 +1028,7 @@ def cuda_chain(prog: ChainProgram, base, cluster: int | None = None):
         raise ValueError("chain kernel: a cluster needs output maps in every step")
     threads, lane_words, all_words, smem = prog.launch_shape(C)
     fq._cert("cuda_smem_bytes", smem, SMEM_LIMIT, note=prog.name)
-    args = prog.device_args(base.device)
-    args.batch = rows // prog.n_chains
+    args = prog.device_args(base.device, rows // prog.n_chains)
     err = _lib().lh_chain_launch(
         ctypes.byref(args), base.data_ptr(), out.data_ptr(),
         fq.dconst(_FOLD8_I32, base).data_ptr(), rows, C, threads, lane_words, all_words, smem,

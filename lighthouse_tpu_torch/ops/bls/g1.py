@@ -6,6 +6,7 @@ uses (scale_u64, psum, to_affine, is_inf) plus host conversions for tests.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import curve, fq, tower
@@ -39,8 +40,22 @@ def from_oracle(p, device):
     )
 
 
+def oracle_limbs(pts):
+    """Oracle affine points (None = infinity) -> projective [n, 3, 25] int64
+    limbs in one host array."""
+    out = np.broadcast_to(curve.inf_np(K), (len(pts), 3, fq.NLIMBS)).copy()
+    fin = [i for i, p in enumerate(pts) if p is not None]
+    if fin:
+        out[fin, 0] = fq.ints_to_limbs([pts[i][0] for i in fin])
+        out[fin, 1] = fq.ints_to_limbs([pts[i][1] for i in fin])
+        out[fin, 2] = tower.one_np(K)[0]
+    return out
+
+
 def from_oracle_batch(pts, device):
-    return torch.stack([from_oracle(p, device) for p in pts])
+    """Oracle affine points (None = infinity) -> projective [n, 3, 25] on
+    ``device``: the limbs built on the host in one array, one upload."""
+    return torch.from_numpy(oracle_limbs(pts)).to(device)
 
 
 def to_oracle(p):

@@ -91,7 +91,15 @@ def from_oracle(p, device):
 
 
 def from_oracle_batch(pts, device):
-    return torch.stack([from_oracle(p, device) for p in pts])
+    """Oracle affine points (None = infinity) -> projective [n, 6, 25] on
+    ``device``: the limbs built on the host in one array, one upload."""
+    out = np.broadcast_to(curve.inf_np(K), (len(pts), 6, fq.NLIMBS)).copy()
+    fin = [i for i, p in enumerate(pts) if p is not None]
+    if fin:
+        for j, (c, part) in enumerate(((0, "c0"), (0, "c1"), (1, "c0"), (1, "c1"))):
+            out[fin, j] = fq.ints_to_limbs([getattr(pts[i][c], part) for i in fin])
+        out[fin, 4:6] = tower.one_np(K)
+    return torch.from_numpy(out).to(device)
 
 
 def to_oracle(p):

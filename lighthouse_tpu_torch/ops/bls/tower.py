@@ -73,7 +73,9 @@ def one_np(k: int) -> np.ndarray:
     return _ONES[k]
 
 
-def one(k: int, shape=(), device="cpu"):
+def one(k: int, shape, device):
+    """one(k) on ``device`` (no default: a forgotten device must not become
+    the CPU), broadcast to ``shape``."""
     t = torch.from_numpy(one_np(k)).to(device)
     return t.expand(tuple(shape) + (k, fq.NLIMBS))
 

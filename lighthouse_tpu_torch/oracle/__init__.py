@@ -3,7 +3,7 @@
 ``lighthouse_tpu_torch`` imports nothing of ``lighthouse_tpu``; this package
 holds what the port needs of ``lighthouse_tpu/ops/bls_oracle``: the field
 tower, G1/G2 arithmetic and serialization, hash-to-curve, the pairing and the
-signing half of the ciphersuite. Tests pin the copy against the original.
+ciphersuite. Tests pin the copy against the original.
 """
 
 from .fields import P, R, BLS_X, Fq2, Fq6, Fq12, fq_inv, fq_sqrt

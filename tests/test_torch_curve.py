@@ -165,3 +165,26 @@ def test_g2_decompress():
         assert g2.to_oracle(gp[i]) == pts[i]
     ok_rows = [i for i in range(4) if rok[i]]
     assert _affine_eq(2, gp[ok_rows], rp[ok_rows])
+
+
+def test_constants_need_a_device_and_batch_conversions_match():
+    """``tower.one`` and ``curve.inf_point`` take no default device (a
+    forgotten one must not become the CPU); the one-upload
+    ``from_oracle_batch`` equals stacking ``from_oracle``, infinity
+    included, and the reference's conversion."""
+    from lighthouse_tpu.ops.bls import g1 as r_g1
+
+    from lighthouse_tpu_torch.ops.bls import tower
+
+    with pytest.raises(TypeError):
+        tower.one(2)
+    with pytest.raises(TypeError):
+        curve.inf_point(1)
+    assert tower.one(2, (3,), "cpu").shape == (3, 2, 25)
+    assert curve.inf_point(2, (), "cpu").shape == (6, 25)
+    p1 = [oc.g1_mul(oc.g1_generator(), k) for k in (3, 1 << 200)] + [None]
+    p2 = [oc.g2_mul(oc.g2_generator(), k) for k in (5, 1 << 199)] + [None]
+    for mod, pts in ((g1, p1), (g2, p2)):
+        got = mod.from_oracle_batch(pts, "cpu")
+        assert torch.equal(got, torch.stack([mod.from_oracle(p, "cpu") for p in pts]))
+    assert (convert.to_numpy(g1.from_oracle_batch(p1, "cpu")) == np.asarray(r_g1.from_oracle_batch(p1))).all()

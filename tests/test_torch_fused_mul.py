@@ -552,3 +552,91 @@ def test_oracle_copy_equals_reference():
     )
     x, y = a.frobenius(1) * a.inv(), ra.frobenius(1) * ra.inv()
     assert repr(x) == repr(y)
+
+
+def _signatures_of_some_plans():
+    """Run a few tower and curve ops on the CPU (several plans, two bound
+    signatures for some names) and return their prepare_plan arguments."""
+    gen = torch.Generator().manual_seed(31)
+    el = lambda n: torch.randint(0, 1 << 16, (2, n, 25), generator=gen) & (  # noqa: E731
+        torch.tensor([0xFFFF] * 23 + [0x0FFF, 0])
+    )
+    a2, b2, a12, b12 = el(2), el(2), el(12), el(12)
+    tower.fq2_mul(a2, b2)
+    tower.fq2_mul(a2, b2, in_bound=plans.CANON_BOUND)
+    tower.fq2_sqr(a2)
+    tower.fq12_mul(a12, b12)
+    tower.fq12_sqr(a12)
+    curve.point_add(1, el(3), el(3))
+    out = []
+    for key, prep in fm._PLAN_CACHE.items():
+        _, n_a, ba, bb, name, ob = key
+        mk = lambda t: None if t is None else plans._Bound(*t)  # noqa: E731
+        out.append((prep.plan, n_a, mk(ba), mk(bb), name, mk(ob)))
+    return out
+
+
+def test_plan_cache_and_counts_are_thread_safe():
+    """Eight threads preparing the same plan signatures at once (switch
+    interval shortened) get the labels one thread gets, one prepared plan
+    per signature, and counters that lose no update."""
+    import sys
+    import threading
+
+    saved_cache, saved_sched = dict(fm._PLAN_CACHE), dict(fm.SCHEDULES)
+    old_switch = sys.getswitchinterval()
+    try:
+        fm._PLAN_CACHE.clear()
+        sigs = _signatures_of_some_plans()
+        assert len(sigs) >= 6
+        names = [s[4] for s in sigs]
+
+        def labels():
+            return {k: p.sched.label for k, p in fm._PLAN_CACHE.items()}
+
+        fm._PLAN_CACHE.clear()
+        for label in [lb for lb in fm.SCHEDULES if lb.split("#")[0] in names]:
+            del fm.SCHEDULES[label]
+        one_thread = [fm.prepare_plan(*s) for s in sigs]
+        want = labels()
+        assert len(set(want.values())) == len(sigs)
+
+        fm._PLAN_CACHE.clear()
+        for label in want.values():
+            del fm.SCHEDULES[label]
+        sys.setswitchinterval(1e-6)
+        n_threads, reps = 8, 400
+        start = threading.Barrier(n_threads)
+        got = [None] * n_threads
+        fm.reset_counts()
+        sched = one_thread[0].sched
+        x = torch.zeros((1, sched.n_a, 25), dtype=torch.int64)
+        y = torch.zeros((1, sched.n_b, 25), dtype=torch.int64)
+
+        def work(t):
+            start.wait(timeout=30)
+            got[t] = [fm.prepare_plan(*s) for s in sigs]
+            for _ in range(reps):
+                fm._count("K3", "thread_test", 1)
+            for _ in range(3):
+                fm.run_fused(got[t][0].sched, x, y)
+
+        threads = [threading.Thread(target=work, args=(t,)) for t in range(n_threads)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        assert not any(th.is_alive() for th in threads)
+        assert labels() == want
+        assert all(all(p is q for p, q in zip(g, got[0])) for g in got)
+        assert len({lb for lb in fm.SCHEDULES if lb.split("#")[0] in names}) == len(sigs)
+        assert fm.launches_by["K3"] == fm.launches == n_threads * reps
+        assert fm.launch_log[("K3", "thread_test", 1)] == n_threads * reps
+        assert fm.plain_calls == n_threads * 3
+    finally:
+        sys.setswitchinterval(old_switch)
+        fm.reset_counts()
+        fm._PLAN_CACHE.clear()
+        fm._PLAN_CACHE.update(saved_cache)
+        fm.SCHEDULES.clear()
+        fm.SCHEDULES.update(saved_sched)

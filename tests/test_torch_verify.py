@@ -11,8 +11,14 @@ reference compiles its three stages once for the whole file.
 * ``verify_indexed_sets_device`` gives the reference's verdict on a valid
   batch, a poisoned signature, a malformed flag byte, an infinity signature,
   an empty index list and 3 sets (padded to 4).
-* The port imports neither jax nor lighthouse_tpu, and its default device
-  (CUDA) raises where CUDA is absent.
+* The aggregation and prologue stages (the entry of
+  ``bls.verify_signature_sets``) equal the reference's
+  ``_aggregate_kernel(4)`` and ``_prologue_stage(4)`` under injected
+  scalars.
+* The port (its ``bls``, ``firehose``, ``resilience``, ``utils`` and
+  ``beacon_processor`` packages too) imports neither jax nor
+  lighthouse_tpu, and its default device (CUDA) raises where CUDA is
+  absent.
 """
 
 import os
@@ -152,6 +158,69 @@ def test_stage_outputs_match_reference(registry, batch):
     assert bool(ok) == bool(rok) is True
 
 
+def _off_subgroup_sig():
+    from lighthouse_tpu_torch.oracle.fields import Fq2
+
+    c0 = 3
+    while (y := (Fq2(c0, 1).square() * Fq2(c0, 1) + Fq2(4, 4)).sqrt()) is None:
+        c0 += 1
+    assert not oc.g2_in_subgroup((Fq2(c0, 1), y))
+    return (Fq2(c0, 1), y)
+
+
+def test_aggregation_and_prologue_stages_match_reference():
+    """The entry of ``bls.verify_signature_sets``: per-set pubkey
+    aggregation (``aggregate_pubkeys_device``) and the prologue stage with
+    injected scalars (one below 2^63, two above), against the reference's
+    ``_aggregate_kernel(4)`` and ``_prologue_stage(4)``: equal canonical
+    outputs. Set 1's signature lies outside the subgroup, so set_ok is
+    False there in both. The h2c entry's verdict equals the reference's."""
+    from lighthouse_tpu.ops.bls import g1 as r_g1, g2 as r_g2
+
+    from lighthouse_tpu_torch.ops.bls import g1, g2, h2c
+
+    key_sets = [[0, 1], [2], [3, 4, 5]]
+    msgs = [bytes([0x50 + i]) * 32 for i in range(3)]
+    sigs = [cs.sign(sum(SKS[i] for i in ks) % R, m) for ks, m in zip(key_sets, msgs)]
+    sigs[1] = _off_subgroup_sig()
+    pts = [[cs.sk_to_pk(SKS[i]) for i in ks] for ks in key_sets]
+    scalars = np.array([0x0123_4567_89AB_CDEF, (1 << 64) - 7, 1 << 63, 9], dtype=np.uint64)
+    valid = np.arange(4) < 3
+
+    def pad(a, n=4):
+        return np.concatenate([a, np.broadcast_to(a[:1], (n - a.shape[0],) + a.shape[1:])])
+
+    r_agg = r_backend.aggregate_pubkeys_device([r_g1.from_oracle_batch(p) for p in pts])
+    r_sig = r_g2.from_oracle_batch(sigs)
+    r_agg4, r_sig4 = jnp.asarray(pad(np.asarray(r_agg))), jnp.asarray(pad(np.asarray(r_sig)))
+    rpro = r_backend._prologue_stage(4)(
+        r_agg4, r_sig4, jnp.asarray(scalars), jnp.asarray(valid)
+    )
+
+    agg = backend.aggregate_pubkeys_device([g1.from_oracle_batch(p, "cpu") for p in pts])
+    sig = g2.from_oracle_batch(sigs, "cpu")
+    agg4 = torch.cat([agg, agg[:1].expand(1, 3, 25)])
+    sig4 = torch.cat([sig, sig[:1].expand(1, 6, 25)])
+    pro = backend.prologue_stage(
+        agg4, sig4, backend.scalars_to_torch(scalars, "cpu"), torch.from_numpy(valid)
+    )
+    assert _canon(convert.to_numpy(agg)) == _canon(r_agg)
+    assert (convert.to_numpy(sig) == np.asarray(r_sig)).all()
+    for name, got, want in zip(("pkx", "pky", "sax", "say"), pro[:4], rpro[:4]):
+        assert _canon(convert.to_numpy(got)) == _canon(want), name
+    assert pro[4].tolist() == np.asarray(rpro[4]).tolist() == [True, False, True, True]
+
+    u0, u1 = h2c.hash_to_field_batch(msgs + msgs[:1], cs.DST, "cpu")
+    ru0, ru1 = r_h2c.hash_to_field_batch(msgs + msgs[:1], R_DST)
+    want = bool(r_backend._verify_kernel_h2c(4)(
+        r_agg4, r_sig4, ru0, ru1, jnp.asarray(scalars), jnp.asarray(valid)
+    ))
+    got = backend.verify_signature_sets_device_h2c(agg4, sig4, u0, u1, 3, scalars=scalars)
+    assert got == want is False
+    sig4[1] = g2.from_oracle(cs.sign(SKS[2], msgs[1]), "cpu")
+    assert backend.verify_signature_sets_device_h2c(agg4, sig4, u0, u1, 3, scalars=scalars)
+
+
 def _poisoned(batch):
     out = list(batch)
     out[1] = _set([2], b"\x02" * 32, signed_msg=b"\x99" * 32)
@@ -213,6 +282,8 @@ def test_port_imports_neither_jax_nor_reference(registry, batch):
 import sys
 import numpy as np
 from lighthouse_tpu_torch.bls import backend, pubkey_cache
+import lighthouse_tpu_torch.bls, lighthouse_tpu_torch.firehose, lighthouse_tpu_torch.resilience
+import lighthouse_tpu_torch.utils.metrics, lighthouse_tpu_torch.beacon_processor
 raw = np.frombuffer(bytes.fromhex({raw.tobytes().hex()!r}), np.uint8).reshape(8, 96)
 cache = pubkey_cache.device_pubkeys_from_raw(raw, device="cpu")
 ok = backend.verify_indexed_sets_device(
