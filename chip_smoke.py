@@ -42,17 +42,32 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      against the SLOs, beside the standalone rate of the same batches; no
      rejected, errored or faulted batch, a clean supervisor;
  10. one synchronous drain of 64 gossip items with 2 poisoned: exactly
-     those False, as many verify calls as the reference's bisection makes.
-Phases 8-10 each set the counts to 0 before and read them after, as phase
-5 does, and hold any shape they launched that phase 4 did not see.
+     those False, as many verify calls as the reference's bisection makes;
+ 11. epoch boundaries on the device: an electra mainnet-preset state over
+     the whole registry (bench.py's _build_epoch_state shape, the
+     registry's pubkeys) through one warm-up, 3 timed and one profiled
+     boundary, each through ``process_slots`` with the epoch backend
+     "device": every one handled by the device engine, a clean
+     ``epoch_device`` supervisor; at 2^18 validators one device boundary
+     held against the numpy ``per_epoch`` twin, field for field and by
+     tree_root;
+ 12. a signed electra block at the first slot after phase 11's boundaries
+     (8 attestations over every committee of one slot each, a full sync
+     aggregate, proposer and randao) through
+     ``per_block_processing(VERIFY_BULK)`` with the state root checked:
+     exactly one ``bls.verify_signature_sets`` batch, on the card; the
+     block with a poisoned attestation signature raises.
+Phases 8-10 and 12 each set the counts to 0 before and read them after, as
+phase 5 does, and hold any shape they launched that phase 4 did not see.
 
 Full configuration: 2^20 validator pubkeys resident as the [N, 3, 25]
 cache (mainnet); main path batches of 64 aggregate signature sets, 512 keys
 per set, 4 timed batches; a block of 131 sets (proposer, randao, 128
 attestation aggregates and one sync aggregate of --keys = 512 keys); a gossip pool
-of 64 committees x 32 attesters. The last line of stdout is the result
-object; the line before it the kernel table; before that the card's name
-and power limit.
+of 64 committees x 32 attesters; the state transition over all 2^20
+validators (the parity boundary at 2^18), its block carrying 262,658 keys in
+11 sets. The last line of stdout is the result object; the line before it
+the kernel table; before that the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -72,6 +87,10 @@ FIREHOSE_RATE = 50_000.0  # att/s offered (BASELINE config #5)
 COMMITTEES = 64  # gossip pool: one slot's committees, 32 attesters each
 BLOCK_ATTESTATIONS = 128  # attestation aggregates in the block (BASELINE config #3)
 BLOCK_REPS = 5  # timed repeats of each half of the block verify
+EPOCH_TIMED = 3  # timed epoch boundaries, between one warm-up and one profiled
+PARITY_VALIDATORS = 1 << 18  # the largest registry bench.py holds against its numpy twin
+STATE_EPOCH = 101  # bench.py's epoch: no eth1, sync-committee or history boundary follows soon
+ATT_SLOTS = 8  # attestations in the state-transition block (one per slot, all committees)
 # int32 multiply-add rate outside the tensor cores: an H100 SM has half as
 # many INT32 lanes as FP32 lanes, so half the 67 TFLOP/s fp32 peak
 H100_INT32_OPS_PER_S = 33.5e12
@@ -363,6 +382,482 @@ def _bisect_calls(order: list, bad: set) -> int:
 
 
 # --------------------------------------------------------------------------------------
+# The state transition (phases 11 and 12)
+# --------------------------------------------------------------------------------------
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _compressed(raw) -> list:
+    """48-byte compressed G1 encodings of the registry's affine points
+    (x with the compression flag, and the sign flag where y > (p - 1) / 2),
+    vectorised over the rows."""
+    import numpy as np
+
+    from lighthouse_tpu_torch.oracle.fields import P
+
+    half = np.frombuffer(((P - 1) // 2).to_bytes(48, "big"), np.uint8)
+    ys = raw[:, 48:]
+    diff = ys != half
+    first = diff.argmax(axis=1)
+    rows = np.arange(raw.shape[0])
+    above = diff.any(axis=1) & (ys[rows, first] > half[first])
+    xs = raw[:, :48].copy()
+    xs[:, 0] |= np.where(above, 0xA0, 0x80).astype(np.uint8)
+    buf = xs.tobytes()
+    return [buf[48 * i: 48 * i + 48] for i in range(raw.shape[0])]
+
+
+def _refill_deposits(state, rng, count: int = 8) -> None:
+    """Top the pending-deposit queue back up to ``count`` 1 ETH top-ups of
+    known validators (bench.py's _refill_epoch_deposits)."""
+    from lighthouse_tpu_torch.types.containers import for_preset
+
+    ns = for_preset("mainnet")
+    pending = list(state.pending_deposits)
+    while len(pending) < count:
+        v = state.validators[int(rng.integers(0, len(state.validators)))]
+        pending.append(ns.PendingDeposit(
+            pubkey=bytes(v.pubkey), withdrawal_credentials=bytes(v.withdrawal_credentials),
+            amount=10**9, signature=b"\x00" * 96, slot=1,
+        ))
+    state.pending_deposits = pending
+
+
+def _epoch_state(spec, raw, comp, rng):
+    """An electra mainnet-preset state over the registry's first
+    ``raw.shape[0]`` keys, shaped after bench.py's _build_epoch_state
+    (BASELINE config #4): the registry's own (unique) pubkeys, ~1/16
+    compounding and ~7/16 0x01 credentials, 32 ejectable validators at
+    15 ETH, balances 31-33 ETH, random participation, 8 pending deposits
+    and 4 pending consolidations, at the last slot of epoch
+    ``STATE_EPOCH``. Besides, what a block needs: a post-merge execution
+    header and a sync committee of 512 registry validators. Returns
+    (state, the sync committee's validator indices)."""
+    import numpy as np
+
+    from lighthouse_tpu_torch.oracle import curves as oc
+    from lighthouse_tpu_torch.types.containers import Checkpoint, Fork, Validator, for_preset
+    from lighthouse_tpu_torch.types.spec import FAR_FUTURE_EPOCH
+
+    ns = for_preset(spec.preset.name)
+    p = spec.preset
+    n = raw.shape[0]
+    state = ns.BeaconStateElectra()
+    state.slot = (STATE_EPOCH + 1) * p.SLOTS_PER_EPOCH - 1
+    state.fork = Fork(previous_version=spec.electra_fork_version,
+                      current_version=spec.electra_fork_version, epoch=0)
+    state.genesis_validators_root = rng.bytes(32)
+    eff = np.full(n, 32 * 10**9, dtype=np.uint64)
+    eff[rng.choice(n, size=min(32, n // 64), replace=False)] = 15 * 10**9
+    creds = rng.integers(0, 16, n)
+    prefix = [b"\x02" if c == 0 else b"\x01" if c < 8 else b"\x00" for c in creds]
+    far = FAR_FUTURE_EPOCH
+    state.validators = [
+        Validator(pubkey=comp[i], withdrawal_credentials=prefix[i] + b"\x00" * 31,
+                  effective_balance=int(eff[i]), slashed=False,
+                  activation_eligibility_epoch=0, activation_epoch=0, exit_epoch=far,
+                  withdrawable_epoch=far)
+        for i in range(n)
+    ]
+    state.balances = rng.integers(31 * 10**9, 33 * 10**9, n, dtype=np.int64).astype(np.uint64)
+    state.previous_epoch_participation = rng.integers(0, 8, n).astype(np.uint8)
+    state.current_epoch_participation = rng.integers(0, 8, n).astype(np.uint8)
+    state.inactivity_scores = np.zeros(n, dtype=np.uint64)
+    state.block_roots = [rng.bytes(32) for _ in range(p.SLOTS_PER_HISTORICAL_ROOT)]
+    cur = STATE_EPOCH
+    state.finalized_checkpoint = Checkpoint(epoch=cur - 2, root=rng.bytes(32))
+    state.previous_justified_checkpoint = Checkpoint(epoch=cur - 2, root=rng.bytes(32))
+    state.current_justified_checkpoint = Checkpoint(epoch=cur - 1, root=rng.bytes(32))
+    state.justification_bits = np.ones(4, dtype=bool)
+    state.eth1_deposit_index = n
+    state.deposit_requests_start_index = 0
+    _refill_deposits(state, rng)
+    state.pending_consolidations = [
+        ns.PendingConsolidation(source_index=int(rng.integers(0, n)),
+                                target_index=int(rng.integers(0, n)))
+        for _ in range(4)
+    ]
+    state.latest_execution_payload_header = ns.payload_header_types["electra"](
+        block_hash=rng.bytes(32), block_number=1, timestamp=0)
+    sync_idx = rng.choice(n, size=p.SYNC_COMMITTEE_SIZE, replace=False)
+    agg = None
+    for i in sync_idx:
+        agg = oc.g1_add(agg, (int.from_bytes(raw[i, :48].tobytes(), "big"),
+                              int.from_bytes(raw[i, 48:].tobytes(), "big")))
+    committee = ns.SyncCommittee(pubkeys=[comp[i] for i in sync_idx],
+                                 aggregate_pubkey=oc.g1_compress(agg))
+    state.current_sync_committee = committee
+    state.next_sync_committee = committee.copy()
+    return state, sync_idx
+
+
+def _next_epoch(spec, state, rng) -> None:
+    """From the first slot of an epoch to its last (slots skipped, as the
+    reference's bench does between boundaries), with fresh participation
+    and a refilled deposit queue, so every boundary does the same work."""
+    import numpy as np
+
+    state.slot += spec.preset.SLOTS_PER_EPOCH - 1
+    state.current_epoch_participation = rng.integers(0, 8, len(state.validators)).astype(np.uint8)
+    _refill_deposits(state, rng)
+
+
+def _epoch_parity(dev_state, twin) -> None:
+    """bench.py's _assert_epoch_parity (1686), plus the tree roots."""
+    import numpy as np
+
+    def col(s, attr):
+        return np.fromiter((int(getattr(v, attr)) for v in s.validators), dtype=np.uint64)
+
+    checks = {
+        "balances": (np.asarray(dev_state.balances, np.uint64), np.asarray(twin.balances, np.uint64)),
+        "inactivity": (np.asarray(dev_state.inactivity_scores, np.uint64),
+                       np.asarray(twin.inactivity_scores, np.uint64)),
+    }
+    if len(dev_state.validators) != len(twin.validators):
+        raise RuntimeError("epoch parity: registry length diverged")
+    for attr in ("effective_balance", "exit_epoch", "withdrawable_epoch", "activation_epoch",
+                 "activation_eligibility_epoch"):
+        checks[attr] = (col(dev_state, attr), col(twin, attr))
+    for name, (a, b) in checks.items():
+        if not np.array_equal(a, b):
+            raise RuntimeError(f"epoch parity: {name} diverged")
+    for attr in ("deposit_balance_to_consume", "exit_balance_to_consume", "earliest_exit_epoch"):
+        if int(getattr(dev_state, attr)) != int(getattr(twin, attr)):
+            raise RuntimeError(f"epoch parity: {attr} diverged")
+    for attr in ("finalized_checkpoint", "pending_deposits", "pending_consolidations"):
+        if getattr(dev_state, attr) != getattr(twin, attr):
+            raise RuntimeError(f"epoch parity: {attr} diverged")
+    if dev_state.tree_root() != twin.tree_root():
+        raise RuntimeError("epoch parity: tree_root diverged")
+
+
+def epoch_phase(spec, raw, comp, dev, rng, profile: bool = True) -> tuple:
+    """Phase 11: the state over the whole registry through one warm-up,
+    EPOCH_TIMED timed and one profiled epoch boundary, each through
+    ``process_slots`` with the epoch backend "device" on ``dev``. Every
+    boundary must be handled by the device engine (read at its seam), with
+    a clean ``epoch_device`` supervisor and the mirror bound once. Returns
+    (state at the first slot after the last boundary, sync committee
+    indices, measurements)."""
+    from lighthouse_tpu_torch import epoch_engine, resilience
+    from lighthouse_tpu_torch import state_transition as st
+    from lighthouse_tpu_torch.epoch_engine import engine
+
+    n = raw.shape[0]
+    t = time.time()
+    state, sync_idx = _epoch_state(spec, raw, comp, rng)
+    build_s = time.time() - t
+    sup = resilience.epoch_supervisor()
+    snap0 = sup.snapshot()
+    epoch_engine.set_backend("device", device=dev)
+    t = time.time()
+    epoch_engine.prepare_state(state)
+    _sync(dev)
+    bind_s = time.time() - t
+    seam_calls, prof = [], {}
+    real = epoch_engine.maybe_process_epoch_on_device
+
+    def seam(spec_, state_, device=None):  # per_epoch.process_epoch calls it
+        t0 = time.perf_counter()
+        if prof.get("on"):
+            # the profiler traces the thread that starts it: for this one
+            # boundary the supervisor runs the sweep on the calling thread
+            # (no watchdog) so that its kernels are in the trace
+            deadline = sup.config.deadline_s
+            sup.config.deadline_s = 0
+            try:
+                ok, wall_ms, dev_us, ops = _profiled(lambda: real(spec_, state_, device))
+            finally:
+                sup.config.deadline_s = deadline
+            prof.update(wall_ms=wall_ms, dev_us=dev_us, aten_ops=ops)
+        else:
+            ok = real(spec_, state_, device)
+            _sync(dev)
+        seam_calls.append((ok, time.perf_counter() - t0))
+        return ok
+
+    n_bound = 2 + EPOCH_TIMED  # warm-up, timed, profiled
+    bounds = []
+    epoch_engine.maybe_process_epoch_on_device = seam
+    try:
+        for i in range(n_bound):
+            prof["on"] = profile and i == n_bound - 1
+            t0 = time.perf_counter()
+            st.process_slots(spec, state, state.slot + 1)
+            _sync(dev)
+            slots_s = time.perf_counter() - t0
+            if len(seam_calls) != i + 1 or seam_calls[i][0] is not True:
+                raise RuntimeError(f"epoch boundary {i}: not handled on the device ({seam_calls})")
+            stats = epoch_engine.engine_stats(state)
+            bounds.append({"epoch_ms": seam_calls[i][1] * 1e3, "slots_ms": slots_s * 1e3,
+                           "h2d_bytes": stats["last_host_to_device_bytes"]})
+            if i < n_bound - 1:
+                _next_epoch(spec, state, rng)
+    finally:
+        epoch_engine.maybe_process_epoch_on_device = real
+    snap = sup.snapshot()
+    for k in ("faults", "retries", "demotions", "fallback_calls", "watchdog_timeouts",
+              "exhausted", "hung_threads"):
+        if snap[k] != snap0[k]:
+            raise RuntimeError(f"epoch_device supervisor not clean: {snap}")
+    if snap["state"] != "HEALTHY" or snap["calls"] - snap0["calls"] != n_bound:
+        raise RuntimeError(f"epoch_device supervisor: {snap}")
+    stats = epoch_engine.engine_stats(state)
+    if stats["full_syncs"] != 1 or stats["epochs"] != n_bound:
+        raise RuntimeError(f"epoch mirror: {stats}")
+    timed = bounds[1:1 + EPOCH_TIMED]
+    ep = _spread([b["epoch_ms"] for b in timed])
+    # the sweep's least traffic: per padded row, the registry (5 x 8 + 2 x 1 B),
+    # balances, inactivity and two participation bytes read once (60 B), seven
+    # 8-byte columns written once (56 B)
+    sweep_bytes = 116 * engine.mirror_of(state).n_pad
+    out = {
+        "validators": n, "build_s": build_s, "bind_s": bind_s, "warmup": bounds[0],
+        "timed": timed, "epoch_ms": ep, "validators_per_s": n / (ep["median"] / 1e3),
+        "h2d_bytes_per_epoch": [b["h2d_bytes"] for b in timed], "mirror": stats,
+        "supervisor": snap, "profiled": bounds[-1], "sweep_bytes": sweep_bytes,
+        "bound_ms": sweep_bytes / H100_BYTES_PER_S * 1e3,
+    }
+    if prof.get("dev_us"):
+        busy = sum(prof["dev_us"].values()) / 1e3
+        out.update(busy_ms=busy, profiled_ms=prof["wall_ms"], aten_ops=prof["aten_ops"],
+                   idle_share=1 - busy / ep["median"],
+                   device_ms_by_name={k: us / 1e3 for k, us in sorted(
+                       prof["dev_us"].items(), key=lambda kv: -kv[1])[:8]})
+    return state, sync_idx, out
+
+
+def epoch_parity_phase(spec, raw, comp, dev, rng) -> dict:
+    """Phase 11's parity: at PARITY_VALIDATORS, one device boundary against
+    the port's numpy per_epoch on a copy of the same state."""
+    from lighthouse_tpu_torch import epoch_engine
+    from lighthouse_tpu_torch.state_transition.per_epoch import process_epoch
+
+    n = min(PARITY_VALIDATORS, raw.shape[0])
+    state, _ = _epoch_state(spec, raw[:n], comp[:n], rng)
+    t = time.time()
+    state.tree_root()  # the copy below carries the per-validator root memos
+    root_s = time.time() - t
+    twin = state.copy()
+    epoch_engine.set_backend("device", device=dev)
+    t = time.time()
+    if not epoch_engine.maybe_process_epoch_on_device(spec, state):
+        raise RuntimeError("epoch parity: the device engine refused the state")
+    _sync(dev)
+    dev_s = time.time() - t
+    epoch_engine.set_backend("numpy")
+    t = time.time()
+    process_epoch(spec, twin)
+    numpy_s = time.time() - t
+    epoch_engine.set_backend("device", device=dev)
+    _epoch_parity(state, twin)
+    return {"validators": n, "device_s": dev_s, "numpy_s": numpy_s, "first_root_s": root_s}
+
+
+def _state_block(spec, state, sk0: int, sync_idx, rng):
+    """A signed electra block at ``state.slot`` (the first slot of an epoch)
+    through the port's own types, and its poisoned twin: ATT_SLOTS
+    attestations, each over every committee of one of the last slots of
+    the previous epoch, a full sync aggregate, the randao reveal and an
+    execution payload carrying the expected withdrawals; the state root
+    from a dry run without signatures, then the proposer's signature. Every
+    aggregate is (sum of the secret keys) * H(m), one oracle signature."""
+    import numpy as np
+
+    from lighthouse_tpu_torch import state_transition as st
+    from lighthouse_tpu_torch.oracle import ciphersuite as cs
+    from lighthouse_tpu_torch.oracle import curves as oc
+    from lighthouse_tpu_torch.oracle.fields import R
+    from lighthouse_tpu_torch.ssz import uint64
+    from lighthouse_tpu_torch.state_transition.per_block import (
+        _expected_withdrawals_list,
+        compute_timestamp_at_slot,
+    )
+    from lighthouse_tpu_torch.types.containers import (
+        AttestationData,
+        Checkpoint,
+        SigningData,
+        for_preset,
+    )
+    from lighthouse_tpu_torch.types.helpers import compute_signing_root, get_domain
+
+    def sign(sk, root):
+        return oc.g2_compress(cs.sign(sk % R, root))
+
+    ns = for_preset(spec.preset.name)
+    spe = spec.preset.SLOTS_PER_EPOCH
+    slot = int(state.slot)
+    epoch, prev = slot // spe, slot // spe - 1
+    n_comm = st.get_committee_count_per_slot(spec, state, prev)
+    att_domain = get_domain(spec, state, spec.DOMAIN_BEACON_ATTESTER, epoch=prev)
+    target = Checkpoint(epoch=prev, root=st.get_block_root(spec, state, prev))
+    committee_bits = np.zeros(spec.preset.MAX_COMMITTEES_PER_SLOT, dtype=bool)
+    committee_bits[:n_comm] = True
+    atts = []
+    for s in range(epoch * spe - ATT_SLOTS, epoch * spe):
+        members = np.concatenate([st.get_beacon_committee(spec, state, s, c) for c in range(n_comm)])
+        data = AttestationData(slot=s, index=0,
+                               beacon_block_root=st.get_block_root_at_slot(spec, state, s),
+                               source=state.previous_justified_checkpoint, target=target)
+        atts.append(ns.AttestationElectra(
+            aggregation_bits=np.ones(members.size, dtype=bool), data=data,
+            signature=sign(members.size * sk0 + int(members.sum()),
+                           compute_signing_root(data, att_domain)),
+            committee_bits=committee_bits.copy(),
+        ))
+    prev_slot = slot - 1
+    sync_root = SigningData(
+        object_root=st.get_block_root_at_slot(spec, state, prev_slot),
+        domain=get_domain(spec, state, spec.DOMAIN_SYNC_COMMITTEE,
+                          epoch=spec.compute_epoch_at_slot(prev_slot)),
+    ).tree_root()
+    sync = ns.SyncAggregate(
+        sync_committee_bits=np.ones(len(sync_idx), dtype=bool),
+        sync_committee_signature=sign(len(sync_idx) * sk0 + int(np.sum(sync_idx)), sync_root),
+    )
+    proposer = st.get_beacon_proposer_index(spec, state)
+    randao_root = SigningData(
+        object_root=uint64.hash_tree_root(epoch),
+        domain=get_domain(spec, state, spec.DOMAIN_RANDAO, epoch=epoch),
+    ).tree_root()
+    header = state.latest_execution_payload_header
+    payload = ns.payload_types["electra"](
+        parent_hash=bytes(header.block_hash), prev_randao=st.get_randao_mix(spec, state, epoch),
+        timestamp=compute_timestamp_at_slot(spec, state, slot),
+        block_number=int(header.block_number) + 1, block_hash=rng.bytes(32),
+        withdrawals=_expected_withdrawals_list(spec, state),
+    )
+    body = ns.body_types["electra"](
+        randao_reveal=sign(sk0 + proposer, randao_root), eth1_data=state.eth1_data,
+        attestations=atts, sync_aggregate=sync, execution_payload=payload,
+    )
+    block_cls = ns.block_types["electra"]
+    block = dict(block_cls.FIELDS)["message"](
+        slot=slot, proposer_index=proposer, parent_root=state.latest_block_header.tree_root(),
+        state_root=b"\x00" * 32, body=body,
+    )
+    trial = state.copy()
+    st.per_block_processing(spec, trial, block_cls(message=block, signature=b"\x00" * 96),
+                            strategy=st.BlockSignatureStrategy.NO_VERIFICATION,
+                            verify_block_root=False)
+    block.state_root = trial.tree_root()
+    del trial
+    domain = get_domain(spec, state, spec.DOMAIN_BEACON_PROPOSER, epoch=epoch)
+    signed = block_cls(message=block, signature=sign(sk0 + proposer, compute_signing_root(block, domain)))
+    bad = block_cls.decode(signed.serialize())
+    bad.message.body.attestations[ATT_SLOTS // 2].signature = atts[0].signature
+    return signed, bad
+
+
+def state_block_phase(spec, state, raw, sk0: int, sync_idx, dev, rng) -> dict:
+    """Phase 12: the block through ``per_block_processing(VERIFY_BULK)``
+    with the state root checked; its signatures must reach the port's
+    ``bls`` as one batch, which runs on ``dev``. Pubkeys come from the
+    registry by index (``get_pubkey``), not by decompression. The poisoned
+    twin must raise. Counts: set to 0 just before the valid block, read by
+    the caller just after this returns."""
+    import numpy as np
+
+    from lighthouse_tpu_torch import bls
+    from lighthouse_tpu_torch import state_transition as st
+    from lighthouse_tpu_torch.ops.shuffle import shuffle_list
+
+    n = len(state.validators)
+    t = time.time()
+    shuffle_list(np.arange(n, dtype=np.uint64), rng.bytes(32), spec.preset.SHUFFLE_ROUND_COUNT)
+    shuffle_s = time.time() - t
+    t = time.time()  # the previous epoch's committee cache: active indices + shuffle
+    st.get_beacon_committee(spec, state, state.slot - spec.preset.SLOTS_PER_EPOCH, 0)
+    committees_s = time.time() - t
+    t = time.time()
+    block, bad = _state_block(spec, state, sk0, sync_idx, rng)
+    build_s = time.time() - t
+    keys: dict = {}
+
+    def get_pubkey(i):
+        pk = keys.get(i)
+        if pk is None:
+            pk = keys[i] = bls.PublicKey((int.from_bytes(raw[i, :48].tobytes(), "big"),
+                                          int.from_bytes(raw[i, 48:].tobytes(), "big")))
+        return pk
+
+    batches, roots = [], []
+    real_verify = bls.verify_signature_sets
+    state_cls = type(state)
+    real_root = state_cls.tree_root
+
+    def verify(sets, *, device=None):  # per_block's one batch, timed by halves
+        sets = list(sets)
+        t0 = time.perf_counter()
+        prepared = bls.prepare_sets(sets, dev)
+        _sync(dev)
+        t1 = time.perf_counter()
+        ok = bls.verify_prepared_sets(prepared)
+        _sync(dev)
+        batches.append({"sets": len(sets), "keys": sum(len(s.signing_keys) for s in sets),
+                        "start": t0, "host_half_ms": (t1 - t0) * 1e3,
+                        "device_half_ms": (time.perf_counter() - t1) * 1e3, "ok": ok})
+        return ok
+
+    def timed_root(self):
+        t0 = time.perf_counter()
+        r = real_root(self)
+        roots.append((time.perf_counter() - t0) * 1e3)
+        return r
+
+    bls.set_backend("device", device=dev)
+    bls.verify_signature_sets = verify
+    state_cls.tree_root = timed_root
+    try:
+        from lighthouse_tpu_torch.ops.bls import fused_mul as fm
+
+        fm.reset_counts()
+        t0 = time.perf_counter()
+        st.per_block_processing(spec, state, block, strategy=st.BlockSignatureStrategy.VERIFY_BULK,
+                                get_pubkey=get_pubkey)
+        total_ms = (time.perf_counter() - t0) * 1e3
+        runs = {"state_block": _read_counts("state-transition block")}
+        if len(batches) != 1 or batches[0]["ok"] is not True:
+            raise RuntimeError(f"state block: {len(batches)} bls batches {batches}")
+        if len(roots) != 1:
+            raise RuntimeError(f"state block: {len(roots)} state roots")
+        valid = dict(batches[0])
+        fm.reset_counts()
+        try:
+            st.per_block_processing(spec, state, bad,
+                                    strategy=st.BlockSignatureStrategy.VERIFY_BULK,
+                                    get_pubkey=get_pubkey)
+        except st.BlockProcessingError as e:
+            if "bulk signature" not in str(e):
+                raise
+        else:
+            raise RuntimeError("the poisoned state block was processed")
+        runs["state_block_bad"] = _read_counts("poisoned state-transition block")
+        if len(batches) != 2 or batches[1]["ok"] is not False:
+            raise RuntimeError(f"poisoned state block: batches {batches[1:]}")
+    finally:
+        bls.verify_signature_sets = real_verify
+        state_cls.tree_root = real_root
+    host_ms = (valid.pop("start") - t0) * 1e3
+    verify_ms = valid["host_half_ms"] + valid["device_half_ms"]
+    return {
+        "slot": int(block.message.slot), "attestations": len(block.message.body.attestations),
+        "sets": valid["sets"], "keys": valid["keys"], "build_s": build_s,
+        "shuffle_s": shuffle_s, "committees_s": committees_s,
+        "host_part_ms": host_ms, "verify": valid, "state_root_ms": roots[0],
+        "operations_ms": total_ms - host_ms - verify_ms - roots[0], "total_ms": total_ms,
+        "runs": runs,
+    }
+
+
+# --------------------------------------------------------------------------------------
 # Kernel checks
 # --------------------------------------------------------------------------------------
 
@@ -613,10 +1108,11 @@ def chain_timing(name: str, rows: int, dev, gen) -> dict:
     }
 
 
-def timed_rows(path_logs: dict, dev, gen) -> list:
+def timed_rows(path_logs: dict, dev, gen, largest=()) -> list:
     """For each path's launch log, each schedule and chain timed at its
-    most-launched row count there (one timing per (kind, name, rows) over
-    all paths). Each row records the paths that chose it and, per path, the
+    most-launched row count there, and for the paths in ``largest`` at its
+    largest row count too (one timing per (kind, name, rows) over all
+    paths). Each row records the paths that chose it and, per path, the
     launches at that row count."""
     chosen: dict = {}
     for path, shapes in path_logs.items():
@@ -624,10 +1120,14 @@ def timed_rows(path_logs: dict, dev, gen) -> list:
         for (kind, name, rows), c in shapes.items():
             per_name.setdefault((kind, name), {})[rows] = c
         for (kind, name), seen in per_name.items():
-            rows = max(seen, key=lambda r: (seen[r], r))
-            chosen.setdefault((kind, name, rows), {})[path] = {
-                "launches_at_rows": seen[rows], "shapes": {str(r): c for r, c in sorted(seen.items())},
-            }
+            picks = {max(seen, key=lambda r: (seen[r], r))}
+            if path in largest:
+                picks.add(max(seen))
+            for rows in picks:
+                chosen.setdefault((kind, name, rows), {})[path] = {
+                    "launches_at_rows": seen[rows],
+                    "shapes": {str(r): c for r, c in sorted(seen.items())},
+                }
     out = []
     for (kind, name, rows), paths in sorted(chosen.items(), key=lambda kv: (kv[0][0], kv[0][1], kv[0][2])):
         if kind == "CHAIN":
@@ -780,6 +1280,13 @@ def main() -> int:
         other = next(it for it in pool[64:] if it[1] != bis_items[j][1])
         bis_items[j] = (bis_items[j][0], bis_items[j][1], other[2])
     log(f"fixture gossip pool: {len(pool)} single-key attestations in {time.time() - t:.2f} s")
+    t = time.time()
+    # the state-transition block's bls shape (phase 12): proposer, randao and
+    # ATT_SLOTS + 1 aggregates padded to one slot's attesters (n / 32 keys)
+    sblock, _ = _block(np.random.default_rng(args.seed + 12), raw, sk0, ATT_SLOTS,
+                       max(1, args.validators // 32))
+    log(f"fixture state-block shape: {len(sblock)} sets, "
+        f"{sum(len(s.signing_keys) for s in sblock)} keys in {time.time() - t:.2f} s")
     cache = pubkey_cache.device_pubkeys_from_raw(raw, device=dev)
     torch.cuda.synchronize()
 
@@ -835,8 +1342,12 @@ def main() -> int:
     fm.reset_counts()
     run_bisect_phase()
     bisect_log = dict(fm.launch_log)
+    fm.reset_counts()
+    if not bls.verify_signature_sets(sblock, device=dev):
+        raise RuntimeError("warm-up of the state-block shape did not verify")
+    path_logs["state_block"] = dict(fm.launch_log)
     torch.cuda.synchronize()
-    log(f"warm-up of the block, gossip and bisection paths: {time.time() - t:.2f} s")
+    log(f"warm-up of the block, gossip, bisection and state-block paths: {time.time() - t:.2f} s")
 
     # 4. kernels against their plain versions at every shape the paths gave them
     gen = torch.Generator().manual_seed(20261017)
@@ -848,7 +1359,7 @@ def main() -> int:
     )
     log(f"exact: {n_exact} (kernel, schedule or chain, rows) shapes bit-exact against the "
         f"plain versions in {time.time() - t:.2f} s")
-    krows = timed_rows(path_logs, dev, gen)
+    krows = timed_rows(path_logs, dev, gen, largest=("state_block",))
     clusters = cluster_checks(dev, gen)
 
     # 5. the main path
@@ -1035,6 +1546,61 @@ def main() -> int:
         f"{len(calls)} verify calls (reference algorithm: {n_calls_ref}), sizes "
         f"{[len(c) for c in calls]}; {n_new} new shapes checked exact")
 
+    # 11. epoch boundaries on the device (BASELINE config #4)
+    from lighthouse_tpu_torch.oracle import curves as oc
+    from lighthouse_tpu_torch.types.spec import mainnet_spec
+
+    espec = mainnet_spec(altair_fork_epoch=0, bellatrix_fork_epoch=0, capella_fork_epoch=0,
+                         deneb_fork_epoch=0, electra_fork_epoch=0)
+    erng = np.random.default_rng(args.seed + 11)
+    t = time.time()
+    comp = _compressed(raw)
+    for i in (0, 1, 2, args.validators - 1):
+        pt = (int.from_bytes(raw[i, :48].tobytes(), "big"), int.from_bytes(raw[i, 48:].tobytes(), "big"))
+        if comp[i] != oc.g1_compress(pt):
+            raise RuntimeError(f"compressed pubkey {i} != the oracle's")
+    log(f"epoch: {args.validators} compressed pubkeys in {time.time() - t:.2f} s")
+    t = time.time()
+    parity = epoch_parity_phase(espec, raw, comp, dev, erng)
+    log(f"epoch parity at {parity['validators']} validators: device boundary == numpy per_epoch "
+        f"(balances, inactivity, registry epochs, churn carries, queues, tree_root); device "
+        f"{parity['device_s']:.3f} s (first bind included), numpy {parity['numpy_s']:.3f} s, "
+        f"first state root {parity['first_root_s']:.2f} s; phase {time.time() - t:.1f} s")
+    t = time.time()
+    estate, sync_idx, epoch_m = epoch_phase(espec, raw, comp, dev, erng)
+    log(f"epoch: {args.validators} validators, state built in {epoch_m['build_s']:.2f} s, mirror "
+        f"bound in {epoch_m['bind_s']:.2f} s; warm-up boundary {epoch_m['warmup']['epoch_ms']:.2f} "
+        f"ms in the engine ({epoch_m['warmup']['slots_ms']:.2f} ms through process_slots); "
+        f"{EPOCH_TIMED} timed boundaries: ms per epoch {json.dumps(epoch_m['epoch_ms'])}, "
+        f"{epoch_m['validators_per_s']:.0f} validators/s, process_slots ms "
+        f"{[round(b['slots_ms'], 2) for b in epoch_m['timed']]}, host->device bytes per epoch "
+        f"{epoch_m['h2d_bytes_per_epoch']}; every boundary on the device, supervisor "
+        f"{json.dumps(epoch_m['supervisor'])}; phase {time.time() - t:.1f} s")
+    if "busy_ms" in epoch_m:
+        log(f"epoch profiled boundary: device busy {epoch_m['busy_ms']:.3f} ms "
+            f"({epoch_m['profiled_ms']:.3f} ms profiled, {epoch_m['aten_ops']} aten ops): idle "
+            f"share {epoch_m['idle_share']:.4f} of the median epoch; byte bound "
+            f"{epoch_m['bound_ms']:.5f} ms ({epoch_m['sweep_bytes']} B at 3.35 TB/s); top "
+            f"{json.dumps({k[:60]: round(v, 3) for k, v in epoch_m['device_ms_by_name'].items()})}")
+    else:
+        log("epoch profiled boundary: device busy time not measured (no device time recorded)")
+
+    # 12. a block through the state transition (BASELINE config #3)
+    t = time.time()
+    sb = state_block_phase(espec, estate, raw, sk0, sync_idx, dev, erng)
+    runs.update(sb.pop("runs"))
+    n_new = sum(exact_checks(runs[k]["log"], dev, gen, done) for k in ("state_block", "state_block_bad"))
+    log(f"state block: slot {sb['slot']}, {sb['attestations']} attestations, {sb['sets']} sets, "
+        f"{sb['keys']} keys, built in {sb['build_s']:.2f} s (shuffle of {args.validators} "
+        f"indices {sb['shuffle_s']:.3f} s, the previous epoch's committees "
+        f"{sb['committees_s']:.3f} s); per_block_processing(VERIFY_BULK) "
+        f"{sb['total_ms']:.2f} ms = host part (committees, indexed attestations, sets) "
+        f"{sb['host_part_ms']:.2f} + verify {sb['verify']['host_half_ms']:.2f} host half + "
+        f"{sb['verify']['device_half_ms']:.2f} device half (one batch) + operations "
+        f"{sb['operations_ms']:.2f} + state root {sb['state_root_ms']:.2f} ms; poisoned block "
+        f"raised; launches {json.dumps(runs['state_block']['by'])}; {n_new} new shapes checked "
+        f"exact; phase {time.time() - t:.1f} s")
+
     log(f"elapsed: {time.time() - t_start:.1f} s")
     table = []
     for r in krows:
@@ -1067,6 +1633,8 @@ def main() -> int:
                 "firehose": fh,
                 "bisect": {"calls": len(calls), "reference_calls": n_calls_ref,
                            "sizes": [len(c) for c in calls], "launches": runs["bisect"]["by"]},
+                "epoch": epoch_m, "epoch_parity": parity,
+                "state_block": {**sb, "launches": runs["state_block"]["by"]},
             }, f, indent=1)
     print(card, flush=True)
     print(json.dumps({"kernels": table}), flush=True)

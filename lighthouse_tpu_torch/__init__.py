@@ -10,7 +10,12 @@ The first slice ports batched BLS12-381 signature-set verification
 path runs through the two hand-written CUDA kernels of ``csrc/fused_mul.cu``
 (bound in ``ops/bls/fused_mul.py``), the port of the reference's only Pallas
 kernel: the plan kernel (one multiply step, input lincombs included) and the
-chain kernel (a whole fixed-exponent chain in one launch).
+chain kernel (a whole fixed-exponent chain in one launch). Over them run the
+``bls`` signature-set API and the gossip ``firehose``; the consensus host
+layers (``ssz``, ``types``, ``state_transition``) are the port's own copies,
+block processing sending its one bulk signature batch to the ``bls`` device
+arm, and ``epoch_engine`` runs every epoch boundary as a PyTorch sweep on the
+device.
 
 Device rule: every entry point takes ``device=``; the default is CUDA, and
 with no CUDA device the default raises — nothing drops to the CPU unless the

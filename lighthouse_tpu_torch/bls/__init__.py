@@ -19,8 +19,10 @@ the reference's device backend does: a device round trip pays off only in
 batches. Wire formats match the reference: 48-byte compressed G1 pubkeys,
 96-byte compressed G2 signatures, 32-byte secret keys.
 
-``verify_signature_sets`` and ``warmup`` take ``device=`` (default CUDA,
-raising without it; the CPU tests pass ``device="cpu"``).
+``verify_signature_sets`` and ``warmup`` take ``device=``; a call that names
+none runs on the device given to ``set_backend`` (default CUDA, raising
+without it). Callers that cannot pass one, such as block processing, follow
+``set_backend``: the CPU tests pass ``device="cpu"`` to either.
 """
 
 from __future__ import annotations
@@ -39,17 +41,25 @@ INFINITY_PUBLIC_KEY = b"\xc0" + b"\x00" * 47
 INFINITY_SIGNATURE = b"\xc0" + b"\x00" * 95
 
 _BACKEND = "device"
+_DEVICE = None  # None: CUDA (device.resolve_device)
 
 
-def set_backend(name: str) -> None:
-    global _BACKEND
+def set_backend(name: str, *, device=None) -> None:
+    """Select the backend; ``device`` is where ``"device"`` runs when a call
+    names none (the counterpart of the reference's JAX default device)."""
+    global _BACKEND, _DEVICE
     if name not in ("device", "oracle"):
         raise ValueError(f"unknown bls backend {name!r}")
     _BACKEND = name
+    _DEVICE = device
 
 
 def get_backend() -> str:
     return _BACKEND
+
+
+def get_device():
+    return _DEVICE
 
 
 class BlsError(Exception):
@@ -253,11 +263,12 @@ def verify_prepared_sets(prepared, *, scalars=None) -> bool:
 
 def verify_signature_sets(sets, *, device=None) -> bool:
     """Random-linear-combination batch verification over the active backend.
-    ``device`` (default CUDA) is where the device backend runs."""
+    ``device`` (default: ``set_backend``'s, else CUDA) is where the device
+    backend runs."""
     sets = list(sets)
     if _BACKEND == "oracle":
         return _verify_sets_oracle(sets)
-    return verify_prepared_sets(prepare_sets(sets, device))
+    return verify_prepared_sets(prepare_sets(sets, _DEVICE if device is None else device))
 
 
 def verify_signature_sets_oracle(sets) -> bool:

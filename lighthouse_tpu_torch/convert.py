@@ -1,11 +1,12 @@
-"""Carry the reference's limb arrays across to the port, and back.
+"""Carry the reference's limb arrays and states across to the port, and back.
 
 The reference holds field elements as uint64 limb planes ``[..., 25]`` (and
 points as ``[..., 3k, 25]``, the pubkey cache as ``[N, 3, 25]``). The port
 holds the same planes as int64 tensors: torch has no uint64 arithmetic. Every
 limb the reference produces is far below 2^63, which ``to_torch`` checks.
 This system has no weights; these arrays take their place in the tests, so
-that both sides compute on the same values.
+that both sides compute on the same values. Beacon states cross as SSZ bytes
+(``state_from_ssz`` / ``state_to_ssz``).
 """
 
 from __future__ import annotations
@@ -39,3 +40,17 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     if a.size and int(a.min()) < 0:
         raise ValueError("negative value cannot be a limb")
     return a.astype(np.uint64)
+
+
+def state_from_ssz(spec, fork: str, data: bytes):
+    """SSZ bytes of a ``fork`` BeaconState (the reference's
+    ``state.serialize()``) -> the port's typed state, so that both packages
+    compute on the same state."""
+    from .types.containers import for_preset
+
+    return for_preset(spec.preset.name).state_types[fork].decode(bytes(data))
+
+
+def state_to_ssz(state) -> bytes:
+    """The port's state -> SSZ bytes, which the reference's state type decodes."""
+    return state.serialize()

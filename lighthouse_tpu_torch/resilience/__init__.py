@@ -17,8 +17,13 @@ and the generic API).
 Import-light: no torch anywhere in this package — supervisors wrap device
 calls, they never reach into them.
 
-Canonical fault domain: ``bls_supervisor()`` guards batched BLS device
-verification (and through it the firehose).
+Canonical fault domains:
+
+* ``bls_supervisor()``   — batched BLS device verification (and through it
+  the firehose);
+* ``epoch_supervisor()`` — the device epoch engine
+  (``epoch_engine.engine.process_epoch_on_device``; stage ``epoch.sweep``),
+  whose fallback, the numpy epoch path, lives outside the ladder.
 """
 
 from __future__ import annotations
@@ -58,6 +63,14 @@ BLS_DOMAIN = "bls_device"
 def bls_supervisor() -> BackendSupervisor:
     """The fault domain guarding batched BLS device verification."""
     return get_supervisor(BLS_DOMAIN)
+
+
+EPOCH_DOMAIN = "epoch_device"
+
+
+def epoch_supervisor() -> BackendSupervisor:
+    """The fault domain guarding the device epoch engine."""
+    return get_supervisor(EPOCH_DOMAIN)
 
 
 def health_snapshot() -> dict:

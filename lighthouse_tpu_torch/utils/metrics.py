@@ -2,10 +2,10 @@
 ``lighthouse_tpu/utils/metrics.py``.
 
 The collectors (Counter, Gauge, Histogram, Registry) and only the metric
-families the port's firehose and resilience modules record into. Names
-follow Lighthouse's so dashboards transfer. Collectors are process-global
-and cheap enough for hot paths (an observe is a couple of dict ops);
-exposition is the Prometheus text format.
+families the port's firehose, resilience and epoch-engine modules record
+into. Names follow Lighthouse's so dashboards transfer. Collectors are
+process-global and cheap enough for hot paths (an observe is a couple of
+dict ops); exposition is the Prometheus text format.
 """
 
 from __future__ import annotations
@@ -240,4 +240,9 @@ RESILIENCE_WATCHDOG_TIMEOUTS = REGISTRY.counter(
     "resilience_watchdog_timeouts_total",
     "Supervised calls that blew the watchdog deadline (hangs)",
     label_names=("domain", "stage"),
+)
+EPOCH_MIRROR_BYTES = REGISTRY.gauge(
+    "epoch_mirror_bytes",
+    "Device-resident bytes of the epoch-engine registry mirror columns, "
+    "set at every (re)grow/full-gather (epoch_engine/mirror.py)",
 )

@@ -274,8 +274,9 @@ def test_empty_batch_is_false(registry):
 
 
 def test_port_imports_neither_jax_nor_reference(registry, batch):
-    """A fresh interpreter imports the port, verifies on the CPU, and has
-    loaded no jax and nothing of lighthouse_tpu."""
+    """A fresh interpreter imports the port, verifies on the CPU, runs one
+    numpy epoch boundary, and has loaded no jax and nothing of
+    lighthouse_tpu."""
     raw, _, _ = registry
     ix, msg, sb = batch[1]
     code = f"""
@@ -284,10 +285,20 @@ import numpy as np
 from lighthouse_tpu_torch.bls import backend, pubkey_cache
 import lighthouse_tpu_torch.bls, lighthouse_tpu_torch.firehose, lighthouse_tpu_torch.resilience
 import lighthouse_tpu_torch.utils.metrics, lighthouse_tpu_torch.beacon_processor
+import lighthouse_tpu_torch.ssz, lighthouse_tpu_torch.types, lighthouse_tpu_torch.ops.shuffle
+import lighthouse_tpu_torch.epoch_engine.engine, lighthouse_tpu_torch.convert
+from lighthouse_tpu_torch import epoch_engine, state_transition
+from lighthouse_tpu_torch.state_transition.genesis import interop_genesis_state
+from lighthouse_tpu_torch.types.spec import minimal_spec
 raw = np.frombuffer(bytes.fromhex({raw.tobytes().hex()!r}), np.uint8).reshape(8, 96)
 cache = pubkey_cache.device_pubkeys_from_raw(raw, device="cpu")
 ok = backend.verify_indexed_sets_device(
     cache, [({ix!r}, bytes.fromhex({msg.hex()!r}), bytes.fromhex({sb.hex()!r}))], device="cpu")
+epoch_engine.set_backend("numpy")
+spec = minimal_spec(altair_fork_epoch=0)
+state = interop_genesis_state(spec, 16)
+state_transition.process_slots(spec, state, spec.preset.SLOTS_PER_EPOCH + 1)
+ok = ok and state.slot == spec.preset.SLOTS_PER_EPOCH + 1
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "lighthouse_tpu" or m.startswith("lighthouse_tpu.")]
 print(ok, bad)
