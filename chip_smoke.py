@@ -51,14 +51,32 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      ``epoch_device`` supervisor; at 2^18 validators one device boundary
      held against the numpy ``per_epoch`` twin, field for field and by
      tree_root;
- 12. a signed electra block at the first slot after phase 11's boundaries
+ 12. a signed electra block one slot after phase 11's last boundary
      (8 attestations over every committee of one slot each, a full sync
      aggregate, proposer and randao) through
      ``per_block_processing(VERIFY_BULK)`` with the state root checked:
      exactly one ``bls.verify_signature_sets`` batch, on the card; the
-     block with a poisoned attestation signature raises.
-Phases 8-10 and 12 each set the counts to 0 before and read them after, as
-phase 5 does, and hold any shape they launched that phase 4 did not see.
+     block with a poisoned attestation signature raises;
+ 13. the port's ``BeaconChain`` anchored on phase 11's post-boundary state
+     (justification set one epoch behind, finality two, as on a healthy
+     chain), its pubkey cache seeded from the registry's affine points and
+     checked against the state's compressed keys, a ``HotColdDB`` over
+     ``MemoryStore``, the bls and epoch backends "device": phase 12's block
+     through ``process_block`` (head, stored post-state root, one bls
+     batch) and its poisoned twin (``BlockError``; head, store and fork
+     choice unchanged); a second block at the first slot of the next epoch,
+     attesting to the first, whose import runs the boundary on the device
+     engine (block 1's fork-choice votes equal its attesters' balances);
+     64 unaggregated attestations of one head committee (one poisoned) and
+     4 aggregates (one with another aggregator's selection proof) through
+     ``BeaconProcessor`` batches into the chain (exact verdicts, the
+     reference bisection's call count); the valid attestations through
+     ``chain.create_firehose()`` (all verified, no drop, no oracle rung).
+     Each import runs with the supervisors' default configuration and is
+     split into its parts; the second one's last slot, boundary and block
+     processing are then replayed on a copy under the profiler.
+Phases 8-10, 12 and 13 each set the counts to 0 before and read them after,
+as phase 5 does, and hold any shape they launched that phase 4 did not see.
 
 Full configuration: 2^20 validator pubkeys resident as the [N, 3, 25]
 cache (mainnet); main path batches of 64 aggregate signature sets, 512 keys
@@ -66,7 +84,7 @@ per set, 4 timed batches; a block of 131 sets (proposer, randao, 128
 attestation aggregates and one sync aggregate of --keys = 512 keys); a gossip pool
 of 64 committees x 32 attesters; the state transition over all 2^20
 validators (the parity boundary at 2^18), its block carrying 262,658 keys in
-11 sets. The last line of stdout is the result object; the line before it
+11 sets; the chain over the same 2^20 registry. The last line of stdout is the result object; the line before it
 the kernel table; before that the card's name and power limit.
 """
 
@@ -394,22 +412,12 @@ def _sync(dev) -> None:
 
 
 def _compressed(raw) -> list:
-    """48-byte compressed G1 encodings of the registry's affine points
-    (x with the compression flag, and the sign flag where y > (p - 1) / 2),
-    vectorised over the rows."""
-    import numpy as np
+    """48-byte compressed G1 encodings of the registry's affine points (the
+    port's vectorised ``compress_affine``; main spot-checks rows against the
+    oracle's ``g1_compress``)."""
+    from lighthouse_tpu_torch.beacon_chain.pubkey_cache import compress_affine
 
-    from lighthouse_tpu_torch.oracle.fields import P
-
-    half = np.frombuffer(((P - 1) // 2).to_bytes(48, "big"), np.uint8)
-    ys = raw[:, 48:]
-    diff = ys != half
-    first = diff.argmax(axis=1)
-    rows = np.arange(raw.shape[0])
-    above = diff.any(axis=1) & (ys[rows, first] > half[first])
-    xs = raw[:, :48].copy()
-    xs[:, 0] |= np.where(above, 0xA0, 0x80).astype(np.uint8)
-    buf = xs.tobytes()
+    buf = compress_affine(raw).tobytes()
     return [buf[48 * i: 48 * i + 48] for i in range(raw.shape[0])]
 
 
@@ -662,13 +670,14 @@ def epoch_parity_phase(spec, raw, comp, dev, rng) -> dict:
 
 
 def _state_block(spec, state, sk0: int, sync_idx, rng):
-    """A signed electra block at ``state.slot`` (the first slot of an epoch)
-    through the port's own types, and its poisoned twin: ATT_SLOTS
+    """A signed electra block at ``state.slot`` (one of the first slots of
+    an epoch) through the port's own types, and its poisoned twin: ATT_SLOTS
     attestations, each over every committee of one of the last slots of
     the previous epoch, a full sync aggregate, the randao reveal and an
     execution payload carrying the expected withdrawals; the state root
     from a dry run without signatures, then the proposer's signature. Every
-    aggregate is (sum of the secret keys) * H(m), one oracle signature."""
+    aggregate is (sum of the secret keys) * H(m), one oracle signature.
+    Returns (block, poisoned twin, the attesters' validator indices)."""
     import numpy as np
 
     from lighthouse_tpu_torch import state_transition as st
@@ -700,9 +709,10 @@ def _state_block(spec, state, sk0: int, sync_idx, rng):
     target = Checkpoint(epoch=prev, root=st.get_block_root(spec, state, prev))
     committee_bits = np.zeros(spec.preset.MAX_COMMITTEES_PER_SLOT, dtype=bool)
     committee_bits[:n_comm] = True
-    atts = []
+    atts, attesters = [], []
     for s in range(epoch * spe - ATT_SLOTS, epoch * spe):
         members = np.concatenate([st.get_beacon_committee(spec, state, s, c) for c in range(n_comm)])
+        attesters.append(members)
         data = AttestationData(slot=s, index=0,
                                beacon_block_root=st.get_block_root_at_slot(spec, state, s),
                                source=state.previous_justified_checkpoint, target=target)
@@ -753,7 +763,7 @@ def _state_block(spec, state, sk0: int, sync_idx, rng):
     signed = block_cls(message=block, signature=sign(sk0 + proposer, compute_signing_root(block, domain)))
     bad = block_cls.decode(signed.serialize())
     bad.message.body.attestations[ATT_SLOTS // 2].signature = atts[0].signature
-    return signed, bad
+    return signed, bad, np.concatenate(attesters)
 
 
 def state_block_phase(spec, state, raw, sk0: int, sync_idx, dev, rng) -> dict:
@@ -777,7 +787,7 @@ def state_block_phase(spec, state, raw, sk0: int, sync_idx, dev, rng) -> dict:
     st.get_beacon_committee(spec, state, state.slot - spec.preset.SLOTS_PER_EPOCH, 0)
     committees_s = time.time() - t
     t = time.time()
-    block, bad = _state_block(spec, state, sk0, sync_idx, rng)
+    block, bad, _ = _state_block(spec, state, sk0, sync_idx, rng)
     build_s = time.time() - t
     keys: dict = {}
 
@@ -853,8 +863,535 @@ def state_block_phase(spec, state, raw, sk0: int, sync_idx, dev, rng) -> dict:
         "shuffle_s": shuffle_s, "committees_s": committees_s,
         "host_part_ms": host_ms, "verify": valid, "state_root_ms": roots[0],
         "operations_ms": total_ms - host_ms - verify_ms - roots[0], "total_ms": total_ms,
-        "runs": runs,
+        "runs": runs, "block": block, "bad": bad,
     }
+
+
+# --------------------------------------------------------------------------------------
+# The beacon chain (phase 13)
+# --------------------------------------------------------------------------------------
+
+
+def _recent_checkpoints(spec, state) -> None:
+    """Justification one epoch behind and finality two, as on a healthy
+    chain. Phase 11's random participation never justifies, and fork
+    choice only takes a block as head while its voting source is within two
+    epochs of the current one (``proto_array._node_is_viable_for_head``)."""
+    from lighthouse_tpu_torch import state_transition as st
+    from lighthouse_tpu_torch.types.containers import Checkpoint
+
+    e = st.get_current_epoch(spec, state)
+    state.current_justified_checkpoint = Checkpoint(epoch=e - 1, root=st.get_block_root(spec, state, e - 1))
+    state.previous_justified_checkpoint = Checkpoint(epoch=e - 2, root=st.get_block_root(spec, state, e - 2))
+    state.finalized_checkpoint = state.previous_justified_checkpoint.copy()
+
+
+class _ImportSplit:
+    """One ``chain.process_block`` split into its parts by wrapping the
+    calls it makes: the chain's own (instance attributes shadow the methods
+    of this one chain), ``process_slots`` and ``per_block_processing`` as
+    the chain module imported them, the ``bls`` batch (timed by halves, as
+    phase 12 does), the state root inside block processing, and the epoch
+    engine's seam. ``split()`` gives the parts in ms after the import."""
+
+    def __init__(self, chain, dev):
+        import lighthouse_tpu_torch.beacon_chain.chain as chain_mod
+        from lighthouse_tpu_torch import bls, epoch_engine
+
+        self.chain, self.dev, self.t = chain, dev, {}
+        self.batches, self.roots, self.epochs, self.in_pbp = [], [], [], False
+        self._undo = []
+        state_cls = type(chain.head.state)
+
+        def patch(obj, name, new):
+            self._undo.append((obj, name, obj.__dict__.get(name, _MISSING)))
+            setattr(obj, name, new)
+
+        def span(key, fn):
+            def run(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    self.t[key] = (t0, time.perf_counter())
+            return run
+
+        patch(chain, "get_state_for_block", span("pre_state", chain.get_state_for_block))
+        patch(chain_mod, "process_slots", span("process_slots", chain_mod.process_slots))
+        real_pbp = chain_mod.per_block_processing
+
+        def pbp(*a, **k):
+            self.in_pbp = True
+            try:
+                return span("pbp", real_pbp)(*a, **k)
+            finally:
+                self.in_pbp = False
+
+        patch(chain_mod, "per_block_processing", pbp)
+        real_verify = bls.verify_signature_sets
+
+        def verify(sets, *, device=None):
+            sets = list(sets)
+            t0 = time.perf_counter()
+            prepared = bls.prepare_sets(sets, dev)
+            _sync(dev)
+            t1 = time.perf_counter()
+            ok = bls.verify_prepared_sets(prepared)
+            _sync(dev)
+            self.batches.append({"sets": len(sets), "keys": sum(len(s.signing_keys) for s in sets),
+                                 "start": t0, "host_half_ms": (t1 - t0) * 1e3,
+                                 "device_half_ms": (time.perf_counter() - t1) * 1e3, "ok": ok})
+            return ok
+
+        patch(bls, "verify_signature_sets", verify)
+        real_root = state_cls.tree_root
+
+        def timed_root(st_self):
+            t0 = time.perf_counter()
+            r = real_root(st_self)
+            if self.in_pbp:
+                self.roots.append((time.perf_counter() - t0) * 1e3)
+            return r
+
+        patch(state_cls, "tree_root", timed_root)
+        real_seam = epoch_engine.maybe_process_epoch_on_device
+
+        def seam(spec_, state_, device=None):
+            t0 = time.perf_counter()
+            ok = real_seam(spec_, state_, device)
+            _sync(dev)
+            self.epochs.append((ok, (time.perf_counter() - t0) * 1e3))
+            return ok
+
+        patch(epoch_engine, "maybe_process_epoch_on_device", seam)
+        patch(chain, "_import_block", span("import_block", chain._import_block))
+        patch(chain.pubkey_cache, "import_new_pubkeys",
+              span("pubkeys", chain.pubkey_cache.import_new_pubkeys))
+        patch(chain.store, "atomic_block_import", span("store", chain.store.atomic_block_import))
+        patch(chain, "_justified_balances", span("justified", chain._justified_balances))
+        patch(chain.fork_choice, "on_block", span("on_block", chain.fork_choice.on_block))
+        patch(chain, "recompute_head", span("head", chain.recompute_head))
+
+    def restore(self) -> None:
+        for obj, name, old in reversed(self._undo):
+            if old is _MISSING:
+                delattr(obj, name)
+            else:
+                setattr(obj, name, old)
+
+    def split(self, total_ms: float) -> dict:
+        t = self.t
+
+        def ms(key):
+            return (t[key][1] - t[key][0]) * 1e3
+
+        v = self.batches[0]
+        pbp_ms = ms("pbp")
+        host_ms = (v["start"] - t["pbp"][0]) * 1e3
+        verify_ms = v["host_half_ms"] + v["device_half_ms"]
+        root_ms = sum(self.roots)
+        return {
+            "total_ms": total_ms, "pre_state_ms": ms("pre_state"),
+            "process_slots_ms": ms("process_slots") if "process_slots" in t else 0.0,
+            "epoch_ms": [e[1] for e in self.epochs],
+            "block_processing_ms": pbp_ms, "host_part_ms": host_ms,
+            "verify_host_half_ms": v["host_half_ms"], "verify_device_half_ms": v["device_half_ms"],
+            "operations_ms": pbp_ms - host_ms - verify_ms - root_ms, "state_root_ms": root_ms,
+            "new_pubkeys_ms": ms("pubkeys"),
+            "store_write_ms": (t["store"][1] - t["pubkeys"][1]) * 1e3,
+            "fork_choice_ms": ms("justified") + ms("on_block"),
+            "justified_balances_ms": ms("justified"), "on_block_ms": ms("on_block"),
+            "block_attestations_to_fork_choice_ms": (t["head"][0] - t["on_block"][1]) * 1e3,
+            "recompute_head_ms": ms("head"), "import_block_ms": ms("import_block"),
+            "sets": v["sets"], "keys": v["keys"],
+        }
+
+
+_MISSING = object()
+
+
+def _timed_import(chain, signed, dev) -> tuple:
+    """``chain.process_block(signed)`` under ``_ImportSplit``, with the
+    supervisors' default configuration: (block root, split, bls batches,
+    epoch seam calls)."""
+    sp = _ImportSplit(chain, dev)
+    try:
+        t0 = time.perf_counter()
+        root = chain.process_block(signed)
+        _sync(dev)
+        total_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        sp.restore()
+    return root, sp.split(total_ms), sp.batches, sp.epochs
+
+
+def _profiled_replay(spec, chain, state, signed) -> dict:
+    """The device-bearing tail of an import replayed on ``state`` (a copy of
+    the pre-state one slot before the block) under torch.profiler: the last
+    slot, with the epoch boundary when the block opens an epoch, then block
+    processing as ``process_block`` calls it, and the post-state root held
+    to the block's. Both supervisors run their device work on the calling
+    thread for this call only, so the trace holds it. Wall, device busy,
+    aten ops and idle share."""
+    from lighthouse_tpu_torch import resilience
+    from lighthouse_tpu_torch import state_transition as st
+    from lighthouse_tpu_torch.state_transition.per_block import ConsensusContext
+
+    def replay():
+        st.process_slots(spec, state, int(signed.message.slot))
+        ctxt = ConsensusContext()
+        ctxt.get_pubkey_index = chain.pubkey_cache.get_index
+        st.per_block_processing(spec, state, signed, strategy=st.BlockSignatureStrategy.VERIFY_BULK,
+                                ctxt=ctxt, get_pubkey=chain.pubkey_cache.get)
+        return state.tree_root()
+
+    sups = (resilience.bls_supervisor(), resilience.epoch_supervisor())
+    deadlines = [s.config.deadline_s for s in sups]
+    try:
+        for s in sups:
+            s.config.deadline_s = 0
+        root, wall_ms, dev_us, ops = _profiled(replay)
+    finally:
+        for s, d in zip(sups, deadlines):
+            s.config.deadline_s = d
+    if root != bytes(signed.message.state_root):
+        raise RuntimeError("profiled replay: the post-state root != the block's state_root")
+    busy_ms = sum(dev_us.values()) / 1e3
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "aten_ops": ops, "idle_share": 1 - busy_ms / wall_ms}
+
+
+def _fork_choice_view(chain) -> tuple:
+    fc = chain.fork_choice
+    return ([(n.root, n.parent, int(n.weight), n.best_child, n.best_descendant) for n in fc.proto.nodes],
+            fc.store.justified_checkpoint, fc.store.finalized_checkpoint,
+            len(fc.queued_attestations), fc.proto._vote_cur.copy(), fc.proto._vote_next.copy())
+
+
+def _sign_all(h, sks) -> list:
+    """Compressed oracle signatures sk * h for each sk."""
+    from lighthouse_tpu_torch.oracle import curves as oc
+    from lighthouse_tpu_torch.oracle.fields import R
+
+    return [oc.g2_compress(oc.g2_mul(h, sk % R)) for sk in sks]
+
+
+def _gossip_fixture(spec, chain, sk0: int, n_att: int, n_agg: int, bad_pos: int):
+    """Gossip for the head slot, signed by the oracle: ``n_att``
+    unaggregated electra attestations by the first members of committee 0
+    (the one at ``bad_pos`` signed by another member), and ``n_agg``
+    SignedAggregateAndProofs of the whole committee by aggregators whose
+    selection proofs select them, the last carrying another aggregator's
+    (valid, selecting) proof. Returns (attestations, aggregates, the
+    attesters' validator indices in order)."""
+    import hashlib
+
+    import numpy as np
+
+    from lighthouse_tpu_torch import state_transition as st
+    from lighthouse_tpu_torch.oracle import ciphersuite as cs
+    from lighthouse_tpu_torch.ssz import uint64
+    from lighthouse_tpu_torch.types.containers import AttestationData, Checkpoint, SigningData, for_preset
+    from lighthouse_tpu_torch.types.helpers import compute_signing_root, get_domain
+
+    ns = for_preset(spec.preset.name)
+    state = chain.head.state
+    slot, epoch = int(state.slot), st.get_current_epoch(spec, state)
+    committee = st.get_beacon_committee(spec, state, slot, 0)
+    data = AttestationData(slot=slot, index=0, beacon_block_root=chain.head.root,
+                           source=state.current_justified_checkpoint,
+                           target=Checkpoint(epoch=epoch, root=chain.head.root))
+    h = cs.hash_to_g2(compute_signing_root(data, get_domain(spec, state, spec.DOMAIN_BEACON_ATTESTER,
+                                                            epoch=epoch)))
+    cbits = np.zeros(spec.preset.MAX_COMMITTEES_PER_SLOT, dtype=bool)
+    cbits[0] = True
+    members = [int(v) for v in committee[:n_att]]
+    sigs = _sign_all(h, [sk0 + v for v in members])
+    sigs[bad_pos] = sigs[(bad_pos + 1) % n_att]
+    atts = []
+    for j, sig in enumerate(sigs):
+        bits = np.zeros(committee.size, dtype=bool)
+        bits[j] = True
+        atts.append(ns.AttestationElectra(aggregation_bits=bits, data=data, signature=sig,
+                                          committee_bits=cbits.copy()))
+    aggregate = ns.AttestationElectra(
+        aggregation_bits=np.ones(committee.size, dtype=bool), data=data,
+        signature=_sign_all(h, [committee.size * sk0 + int(committee.sum())])[0],
+        committee_bits=cbits.copy())
+    sel_h = cs.hash_to_g2(SigningData(
+        object_root=uint64.hash_tree_root(slot),
+        domain=get_domain(spec, state, spec.DOMAIN_SELECTION_PROOF, epoch=epoch)).tree_root())
+    modulo = max(1, committee.size // spec.target_aggregators_per_committee)
+    chosen = []
+    for v in committee:
+        proof = _sign_all(sel_h, [sk0 + int(v)])[0]
+        if int.from_bytes(hashlib.sha256(proof).digest()[:8], "little") % modulo == 0:
+            chosen.append((int(v), proof))
+            if len(chosen) == n_agg:
+                break
+    if len(chosen) < n_agg:
+        raise RuntimeError(f"only {len(chosen)} aggregators selected in the committee")
+    env_domain = get_domain(spec, state, spec.DOMAIN_AGGREGATE_AND_PROOF, epoch=epoch)
+    aggs = []
+    for k, (v, proof) in enumerate(chosen):
+        if k == n_agg - 1:
+            proof = chosen[0][1]  # another aggregator's proof: it selects, it does not verify
+        msg = ns.AggregateAndProofElectra(aggregator_index=v, aggregate=aggregate,
+                                          selection_proof=proof)
+        env = compute_signing_root(msg, env_domain)
+        aggs.append(ns.SignedAggregateAndProofElectra(
+            message=msg, signature=_sign_all(cs.hash_to_g2(env), [sk0 + v])[0]))
+    return atts, aggs, members
+
+
+def _clean(before: dict, after: dict, calls: int | None, what: str) -> None:
+    for k in ("faults", "retries", "demotions", "fallback_calls", "watchdog_timeouts",
+              "exhausted", "hung_threads"):
+        if after[k] != before[k]:
+            raise RuntimeError(f"{what} supervisor not clean: {before} -> {after}")
+    if after["state"] != "HEALTHY":
+        raise RuntimeError(f"{what} supervisor: {after}")
+    if calls is not None and after["calls"] - before["calls"] != calls:
+        raise RuntimeError(f"{what} supervisor: {after['calls'] - before['calls']} calls, not {calls}")
+
+
+def chain_phase(spec, anchor, raw, sk0: int, sync_idx, block, bad, dev_cache, dev, rng) -> dict:
+    """Phase 13: the port's ``BeaconChain`` on ``anchor`` (phase 11's
+    post-boundary state), its pubkey cache seeded from the registry's
+    affine points; phase 12's block and its poisoned twin through
+    ``process_block``; a second block at the first slot of the next epoch
+    (the boundary inside the import, on the device engine) carrying
+    attestations to the first; gossip through ``BeaconProcessor`` into the
+    batch paths; the firehose. Counts are set to 0 before each import or
+    gossip run and read after it (``runs``)."""
+    import resource
+
+    import numpy as np
+    import torch
+
+    from lighthouse_tpu_torch import bls, epoch_engine, resilience
+    from lighthouse_tpu_torch import state_transition as st
+    from lighthouse_tpu_torch.beacon_chain import BeaconChain, BlockError, ValidatorPubkeyCache
+    from lighthouse_tpu_torch.beacon_processor import (
+        BeaconProcessor,
+        BeaconProcessorConfig,
+        Work,
+        WorkType,
+    )
+    from lighthouse_tpu_torch.ops.bls import fused_mul as fm
+    from lighthouse_tpu_torch.store import HotColdDB
+    from lighthouse_tpu_torch.store.kv import DBColumn
+    from lighthouse_tpu_torch.utils.slot_clock import ManualSlotClock
+
+    out, runs = {"validators": len(anchor.validators)}, {}
+    bls.set_backend("device", device=dev)
+    epoch_engine.set_backend("device", device=dev)
+    bls_sup, epoch_sup = resilience.bls_supervisor(), resilience.epoch_supervisor()
+
+    # 1. boot: the seeded pubkey cache, checked against the state's keys
+    t = time.time()
+    cache = ValidatorPubkeyCache.from_affine(anchor, raw, device=dev)
+    seed_s = time.time() - t
+    twisted = raw[:8].copy()
+    twisted[3, 47] ^= 1
+    tiny = type("Anchor", (), {"validators": anchor.validators[:8]})()
+    try:
+        ValidatorPubkeyCache.from_affine(tiny, twisted, device=dev)
+    except ValueError:
+        pass
+    else:
+        raise RuntimeError("a seed that does not compress to the state's keys was accepted")
+    t = time.time()
+    if not torch.equal(cache.device_array(), dev_cache):
+        raise RuntimeError("the seeded cache's device tensor != device_pubkeys_from_raw")
+    _sync(dev)
+    upload_s = time.time() - t
+    slot1 = int(block.message.slot)
+    clock = ManualSlotClock(slot1)
+    t = time.time()
+    chain = BeaconChain(spec, anchor, store=HotColdDB(), slot_clock=clock, pubkey_cache=cache)
+    _sync(dev)
+    out["boot"] = {"seed_s": seed_s, "upload_s": upload_s, "chain_s": time.time() - t}
+    if chain.pubkey_cache is not cache or len(cache) != len(anchor.validators):
+        raise RuntimeError("the chain did not take the seeded cache")
+    if chain.head.root != bytes(block.message.parent_root):
+        raise RuntimeError("the anchor's root is not the block's parent")
+    log(f"chain: booted on the {len(anchor.validators)}-validator anchor at slot "
+        f"{int(anchor.slot)}: seeded pubkey cache {seed_s:.2f} s (checked against the state's "
+        f"compressed keys; a twisted seed raised), device tensor == phase 2's {upload_s:.2f} s, "
+        f"BeaconChain {out['boot']['chain_s']:.2f} s")
+
+    # 2. import the valid block, then its poisoned twin
+    fm.reset_counts()
+    root1, split1, batches, _ = _timed_import(chain, block, dev)
+    runs["chain_import"] = _read_counts("chain import")
+    if len(batches) != 1 or batches[0]["ok"] is not True:
+        raise RuntimeError(f"chain import: bls batches {batches}")
+    if chain.head.root != root1:
+        raise RuntimeError("chain import: the head did not move to the block")
+    sr = bytes(block.message.state_root)
+    if chain.store.get_state(sr) is None or chain.store.state_slot(sr) != slot1:
+        raise RuntimeError("chain import: the post-state is not stored under the block's state root")
+    t = time.time()
+    if chain.state_by_root(root1).tree_root() != sr:
+        raise RuntimeError("chain import: the post-state root != the block's state_root")
+    check_root_s = time.time() - t
+    out["import1"] = split1
+    log(f"chain import 1 (slot {slot1}, {split1['sets']} sets, {split1['keys']} keys): "
+        f"{json.dumps({k: round(v, 2) if isinstance(v, float) else v for k, v in split1.items()})}; "
+        f"head == block, stored post-state root == block state_root (checked by a fresh "
+        f"tree_root, {check_root_s:.2f} s); launches {json.dumps(runs['chain_import']['by'])}")
+    head0, keys0, fc0 = chain.head.root, sorted(chain.store.hot._data), _fork_choice_view(chain)
+    fm.reset_counts()
+    t = time.time()
+    try:
+        chain.process_block(bad)
+    except BlockError as e:
+        err = str(e)
+    else:
+        raise RuntimeError("chain: the poisoned block was imported")
+    bad_s = time.time() - t
+    runs["chain_import_bad"] = _read_counts("chain poisoned import")
+    fc1 = _fork_choice_view(chain)
+    if (chain.head.root != head0 or sorted(chain.store.hot._data) != keys0 or fc1[:4] != fc0[:4]
+            or not all(np.array_equal(a, b) for a, b in zip(fc1[4:], fc0[4:]))):
+        raise RuntimeError("chain: the poisoned import changed the head, the store or fork choice")
+    log(f"chain poisoned twin: BlockError ({err[:60]}) in {bad_s:.2f} s; head, store keys "
+        f"and fork choice unchanged")
+
+    # 3. a second block at the first slot of the next epoch, attesting to the first
+    spe = spec.preset.SLOTS_PER_EPOCH
+    slot2 = (slot1 // spe + 1) * spe
+    clock.set_slot(slot2)
+    t = time.time()
+    last = chain.get_state_for_block(root1, slot2 - 1)  # the epoch's last slot, kept for the replay
+    pre2 = last.copy()
+    st.process_slots(spec, pre2, slot2)
+    block2, _, attesters = _state_block(spec, pre2, sk0, sync_idx, rng)
+    del pre2
+    build2_s = time.time() - t
+    esnap = epoch_sup.snapshot()
+    fm.reset_counts()
+    root2, split2, batches2, epochs2 = _timed_import(chain, block2, dev)
+    runs["chain_import2"] = _read_counts("chain import across the epoch boundary")
+    if len(batches2) != 1 or batches2[0]["ok"] is not True:
+        raise RuntimeError(f"chain import 2: bls batches {batches2}")
+    if len(epochs2) != 1 or epochs2[0][0] is not True:
+        raise RuntimeError(f"chain import 2: the epoch boundary was not handled on the device {epochs2}")
+    _clean(esnap, epoch_sup.snapshot(), 1, "epoch_device")
+    if chain.head.root != root2:
+        raise RuntimeError("chain import 2: the head did not move to the second block")
+    # block 1's own weight (its subtree's less block 2's, which holds the
+    # proposer boost) is its attesters' justified balances, to the Gwei
+    fc = chain.fork_choice
+    node1, node2 = (fc.proto.nodes[fc.proto.indices[r]] for r in (root1, root2))
+    votes = int(node1.weight) - int(node2.weight)
+    want = int(fc.store.justified_balances[np.unique(attesters).astype(np.int64)].sum())
+    if votes != want or want == 0:
+        raise RuntimeError(f"fork choice: block 1's votes weigh {votes}, its attesters {want}")
+    esnap = epoch_sup.snapshot()
+    prof = _profiled_replay(spec, chain, last, block2)
+    del last
+    _clean(esnap, epoch_sup.snapshot(), 1, "epoch_device (profiled replay)")
+    out.update(import2=split2, build2_s=build2_s, profile2=prof, block1_votes=votes,
+               block2_boost=int(node2.weight), block1_attesters=int(np.unique(attesters).size))
+    log(f"chain import 2 (slot {slot2}, across the epoch boundary; block built in {build2_s:.1f} s): "
+        f"{json.dumps({k: round(v, 2) if isinstance(v, float) else v for k, v in split2.items()})}; "
+        f"boundary on the device engine, epoch_device clean; head == block 2; block 1's votes "
+        f"{votes} == its {out['block1_attesters']} attesters' justified balances (block 2: "
+        f"proposer boost {int(node2.weight)}); "
+        f"launches {json.dumps(runs['chain_import2']['by'])}; its last slot, boundary and block "
+        f"processing replayed on a copy under the profiler: {prof['wall_ms']:.2f} ms, device busy "
+        f"{prof['busy_ms']:.3f} ms, {prof['aten_ops']} aten ops, idle share {prof['idle_share']:.5f}, "
+        f"post-state root == block 2's")
+
+    # 4. gossip through the beacon processor into the chain's batch paths
+    n_att, bad_pos = 64, 23
+    t = time.time()
+    atts, aggs, members = _gossip_fixture(spec, chain, sk0, n_att, 4, bad_pos)
+    out["gossip_fixture_s"] = time.time() - t
+    calls = []
+    real_batch = chain._batch_verify_items
+
+    def counting(items):
+        calls.append(list(items))
+        return real_batch(items)
+
+    chain._batch_verify_items = counting
+    proc = BeaconProcessor(BeaconProcessorConfig(max_batch_size=64), synchronous=False)
+    proc.shutdown()  # drained inline below
+    results, agg_results = [], []
+    for a in atts:
+        proc.submit(Work(WorkType.GossipAttestation, a,
+                         process_batch=lambda xs: results.extend(chain.verify_unaggregated_attestations(xs))))
+    bsnap = bls_sup.snapshot()
+    fm.reset_counts()
+    t = time.perf_counter()
+    proc.run_until_idle()
+    _sync(dev)
+    att_ms = (time.perf_counter() - t) * 1e3
+    runs["chain_gossip"] = _read_counts("chain gossip attestations")
+    if proc.batches_formed != 1 or len(results) != n_att:
+        raise RuntimeError(f"beacon processor: {proc.batches_formed} batches, {len(results)} verdicts")
+    rejected = [atts.index(a) for a, v in results if isinstance(v, Exception)]
+    if rejected != [bad_pos]:
+        raise RuntimeError(f"gossip: rejected {rejected}, poisoned {bad_pos}")
+    pos = {v: j for j, v in enumerate(members)}
+    order = [pos[it[0][0]] for it in calls[0]]
+    n_ref = 1 + _bisect_calls(order, {bad_pos})
+    if len(calls) != n_ref:
+        raise RuntimeError(f"gossip bisection: {len(calls)} verify calls, the reference makes {n_ref}")
+    n_calls_att = len(calls)
+    calls.clear()
+    for sap in aggs:
+        proc.submit(Work(WorkType.GossipAggregate, sap,
+                         process_batch=lambda xs: agg_results.extend(chain.verify_aggregated_attestations(xs))))
+    fm.reset_counts()
+    t = time.perf_counter()
+    proc.run_until_idle()
+    _sync(dev)
+    agg_ms = (time.perf_counter() - t) * 1e3
+    runs["chain_aggregates"] = _read_counts("chain gossip aggregates")
+    agg_rejected = [aggs.index(a) for a, v in agg_results if isinstance(v, Exception)]
+    if agg_rejected != [len(aggs) - 1] or len(agg_results) != len(aggs):
+        raise RuntimeError(f"aggregates: rejected {agg_rejected} of {len(agg_results)}")
+    chain._batch_verify_items = real_batch
+    _clean(bsnap, bls_sup.snapshot(), None, "bls_device")
+    out["gossip"] = {"attestations": n_att, "batch_ms": att_ms, "verify_calls": n_calls_att,
+                     "reference_calls": n_ref, "verified_att_per_s": (n_att - 1) / (att_ms / 1e3),
+                     "aggregates": len(aggs), "aggregate_batch_ms": agg_ms,
+                     "aggregate_verify_calls": len(calls)}
+    log(f"chain gossip: {n_att} attestations of committee 0 at slot {slot2} through one "
+        f"BeaconProcessor batch: exactly the poisoned one ({bad_pos}) rejected; {n_calls_att} "
+        f"verify calls (reference bisection: {n_ref}); {att_ms:.2f} ms, "
+        f"{out['gossip']['verified_att_per_s']:.2f} verified att/s; {len(aggs)} aggregates, the "
+        f"one with another aggregator's selection proof rejected, {agg_ms:.2f} ms, "
+        f"{len(calls)} verify calls; bls_device clean")
+
+    # 5. the same valid attestations through the chain's firehose
+    valid = [a for i, a in enumerate(atts) if i != bad_pos]
+    engine = chain.create_firehose()
+    bsnap = bls_sup.snapshot()
+    fm.reset_counts()
+    t = time.perf_counter()
+    for a in valid:
+        if not engine.submit(a):
+            raise RuntimeError("firehose refused an attestation")
+    engine.stop(drain_timeout=120.0)
+    fh_s = time.perf_counter() - t
+    runs["chain_firehose"] = _read_counts("chain firehose")
+    fst = engine.stats()
+    if fst.verified != len(valid) or fst.dropped or fst.rejected or fst.errored or fst.device_faults:
+        raise RuntimeError(f"chain firehose: {fst.as_dict()}")
+    _clean(bsnap, bls_sup.snapshot(), None, "bls_device")
+    out["firehose"] = {"verified": fst.verified, "wall_s": fh_s,
+                       "verified_att_per_s": fst.verified / fh_s, "batches": fst.batches_formed}
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    out["peak_rss_bytes"] = rss
+    log(f"chain firehose: {fst.verified} of {len(valid)} verified, 0 dropped, in {fh_s * 1e3:.2f} ms "
+        f"({out['firehose']['verified_att_per_s']:.2f} att/s, {fst.batches_formed} batches); "
+        f"bls_device clean, no oracle rung; host peak RSS {rss} bytes")
+    out["runs"] = runs
+    return out
 
 
 # --------------------------------------------------------------------------------------
@@ -863,6 +1400,9 @@ def state_block_phase(spec, state, raw, sk0: int, sync_idx, dev, rng) -> dict:
 
 
 SRC = "lighthouse_tpu_torch/csrc/fused_mul.cu"
+# phase 13's paths and the earlier path of the same shapes whose timed rows they share
+CHAIN_TWINS = {"chain_import": "state_block", "chain_import2": "state_block",
+               "chain_gossip": "gossip", "chain_firehose": "gossip"}
 REPLACES = {
     "K1": "lighthouse_tpu/ops/bls/pallas_kernels.py:587 (fused_mul, lazy=False -> _build_call:497)",
     "K3": "lighthouse_tpu/ops/bls/pallas_kernels.py:620 (execute_plan -> _build_call:497)",
@@ -1585,9 +2125,22 @@ def main() -> int:
     else:
         log("epoch profiled boundary: device busy time not measured (no device time recorded)")
 
+    # phase 13's anchor: the post-boundary state, justification one epoch behind;
+    # the blocks of phases 12 and 13 go one slot later
+    from lighthouse_tpu_torch import state_transition as st
+
+    t = time.time()
+    _recent_checkpoints(espec, estate)
+    anchor = estate.copy()
+    st.process_slots(espec, estate, int(estate.slot) + 1)
+    log(f"chain anchor: state copied and the block's pre-state advanced one slot in "
+        f"{time.time() - t:.1f} s")
+
     # 12. a block through the state transition (BASELINE config #3)
     t = time.time()
     sb = state_block_phase(espec, estate, raw, sk0, sync_idx, dev, erng)
+    del estate
+    sb_block, sb_bad = sb.pop("block"), sb.pop("bad")
     runs.update(sb.pop("runs"))
     n_new = sum(exact_checks(runs[k]["log"], dev, gen, done) for k in ("state_block", "state_block_bad"))
     log(f"state block: slot {sb['slot']}, {sb['attestations']} attestations, {sb['sets']} sets, "
@@ -1600,6 +2153,16 @@ def main() -> int:
         f"{sb['operations_ms']:.2f} + state root {sb['state_root_ms']:.2f} ms; poisoned block "
         f"raised; launches {json.dumps(runs['state_block']['by'])}; {n_new} new shapes checked "
         f"exact; phase {time.time() - t:.1f} s")
+
+    # 13. the beacon chain over the same registry
+    t = time.time()
+    ch = chain_phase(espec, anchor, raw, sk0, sync_idx, sb_block, sb_bad, cache, dev, erng)
+    del anchor
+    runs.update(ch.pop("runs"))
+    chain_runs = ("chain_import", "chain_import_bad", "chain_import2", "chain_gossip",
+                  "chain_aggregates", "chain_firehose")
+    n_new = sum(exact_checks(runs[k]["log"], dev, gen, done) for k in chain_runs)
+    log(f"chain: {n_new} new shapes checked exact; phase {time.time() - t:.1f} s")
 
     log(f"elapsed: {time.time() - t_start:.1f} s")
     table = []
@@ -1617,6 +2180,11 @@ def main() -> int:
                 "rows": r["rows"], "lanes": r["lanes"], "out_rows": r["out_rows"],
                 "cluster": r["cluster"], "launch_ms": r["launch_ms"],
             })
+        for path, twin in CHAIN_TWINS.items():
+            launches = runs[path]["by_name"].get((r["kind"], r["name"]), 0)
+            if twin in r["paths"] and launches:
+                table.append({**table[-1], "name": f"{kernel} {r['kind']} {r['name']} [{path}]",
+                              "launches": launches})
     if args.report:
         with open(args.report, "w") as f:
             json.dump({
@@ -1635,6 +2203,7 @@ def main() -> int:
                            "sizes": [len(c) for c in calls], "launches": runs["bisect"]["by"]},
                 "epoch": epoch_m, "epoch_parity": parity,
                 "state_block": {**sb, "launches": runs["state_block"]["by"]},
+                "chain": {**ch, "launches": {k: runs[k]["by"] for k in chain_runs}},
             }, f, indent=1)
     print(card, flush=True)
     print(json.dumps({"kernels": table}), flush=True)

@@ -15,7 +15,10 @@ chain kernel (a whole fixed-exponent chain in one launch). Over them run the
 layers (``ssz``, ``types``, ``state_transition``) are the port's own copies,
 block processing sending its one bulk signature batch to the ``bls`` device
 arm, and ``epoch_engine`` runs every epoch boundary as a PyTorch sweep on the
-device.
+device. Over them the node's own layers are copied: ``beacon_chain`` (block
+import, the gossip batch paths and the firehose, with the validator pubkeys
+resident on the device), ``fork_choice``, ``store``, ``op_pool`` and the
+``beacon_processor`` scheduler.
 
 Device rule: every entry point takes ``device=``; the default is CUDA, and
 with no CUDA device the default raises — nothing drops to the CPU unless the

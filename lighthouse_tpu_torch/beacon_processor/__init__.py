@@ -1,4 +1,11 @@
-"""The port's beacon-processor table (``WorkType``); the scheduler is not
-ported."""
+"""Work scheduler (Lighthouse beacon_node/beacon_processor): the port's copy
+of ``lighthouse_tpu/beacon_processor``."""
 
-from .processor import WorkType  # noqa: F401
+from .processor import (
+    BeaconProcessor,
+    BeaconProcessorConfig,
+    Work,
+    WorkType,
+    QueueLengths,
+)
+from .reprocess import ReprocessQueue

@@ -5,8 +5,9 @@ points as ``[..., 3k, 25]``, the pubkey cache as ``[N, 3, 25]``). The port
 holds the same planes as int64 tensors: torch has no uint64 arithmetic. Every
 limb the reference produces is far below 2^63, which ``to_torch`` checks.
 This system has no weights; these arrays take their place in the tests, so
-that both sides compute on the same values. Beacon states cross as SSZ bytes
-(``state_from_ssz`` / ``state_to_ssz``).
+that both sides compute on the same values. Beacon states and signed blocks
+cross as SSZ bytes (``state_from_ssz`` / ``state_to_ssz``,
+``block_from_ssz`` / ``block_to_ssz``).
 """
 
 from __future__ import annotations
@@ -54,3 +55,17 @@ def state_from_ssz(spec, fork: str, data: bytes):
 def state_to_ssz(state) -> bytes:
     """The port's state -> SSZ bytes, which the reference's state type decodes."""
     return state.serialize()
+
+
+def block_from_ssz(spec, fork: str, data: bytes):
+    """SSZ bytes of a ``fork`` SignedBeaconBlock (the reference's
+    ``signed_block.serialize()``) -> the port's typed signed block."""
+    from .types.containers import for_preset
+
+    return for_preset(spec.preset.name).block_types[fork].decode(bytes(data))
+
+
+def block_to_ssz(signed_block) -> bytes:
+    """The port's signed block -> SSZ bytes, which the reference's block
+    type of the same fork decodes."""
+    return signed_block.serialize()

@@ -8,8 +8,8 @@ journal records exactly which validator indices were touched so the next
 ``RegistryMirror.sync`` scatters only those rows host→device.
 
 The journal is attached to the state object itself (``state._registry_deltas``
-— the same per-state convention as ``_committee_caches``), so ``state.copy()``
-drops it and a copied state triggers a clean full re-gather. Mutation sites
+— a per-state attribute that ``state.copy()``, unlike ``_committee_caches``,
+drops), so a copied state triggers a clean full re-gather. Mutation sites
 that cannot be attributed to a single index (fork upgrades, the numpy epoch
 path's field loops) call ``invalidate_registry_journal`` instead, forcing the
 next sync to re-gather.

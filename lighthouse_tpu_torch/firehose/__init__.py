@@ -16,8 +16,8 @@ device backend (``bls.backend.verify_indexed_sets_device``):
     split and retried to isolate the poisoned set(s) in O(bad * log n)
     batched calls instead of n per-set calls.
 
-Not ported yet: the attester/shuffling cache tier (``attester_cache.py``,
-which needs the state transition) and the sharded serving tier
+The attester/shuffling cache tier (``attester_cache.py``) resolves gossip
+committees for the chain. Not ported yet: the sharded serving tier
 (``sharding.py``, multi-GPU).
 """
 

@@ -29,10 +29,9 @@ Fields:
   *detected*-corruption fault: the certifier's bound asserts are exactly
   what turns silent bad numerics into a classified fault), or the crash
   modes ``kill`` / ``tear`` (simulate the process dying at a persistence
-  barrier — consumed ONLY through ``crash_action`` by crash-point hooks,
-  which the port does not have yet, never by ``before_call``, so a
-  supervised device stage can never accidentally absorb a "process
-  death").
+  barrier — consumed ONLY through ``crash_action`` by the crash-point
+  hooks in ``crashpoints.py``, never by ``before_call``, so a supervised
+  device stage can never accidentally absorb a "process death").
 * ``kind``   — for ``raise``: ``transient`` (default) or ``oom``.
 * ``every=K`` / ``at=N`` — fire on every Kth call / only on the Nth call.
 * ``times=T`` — stop after T firings (default unlimited).

@@ -6,6 +6,19 @@ cache (``beacon_state/committee_cache.rs``). The committee cache here shuffles
 the whole active set once per (epoch, seed) with the vectorized swap-or-not
 kernel and slices committees out of the flat permutation — the same layout the
 reference caches.
+
+Per-epoch caches. Beside the committee caches, each state memoises per epoch
+the values block processing would otherwise recompute from the registry on
+every attestation: the active validator indices (and with them the committee
+count per slot) and the total active balance — Lighthouse keeps the same
+values on ``BeaconState`` (its committee caches and ``total_active_balance``).
+They live in the state's ``_committee_caches`` dict, are dropped with the
+committee caches by ``invalidate_caches`` (at every epoch change and fork
+upgrade) and are carried by ``state.copy()``. Within an epoch no block can
+change them: exits and activations land at epochs >= current + 1 +
+MAX_SEED_LOOKAHEAD, deposits add validators that are not active yet, and
+effective balances move only in epoch processing, after its last read of the
+total.
 """
 
 from __future__ import annotations
@@ -33,11 +46,27 @@ def get_previous_epoch(spec: ChainSpec, state) -> int:
     return cur - 1 if cur > 0 else 0
 
 
+def _caches(state) -> dict:
+    cache = getattr(state, "_committee_caches", None)
+    if cache is None:
+        cache = {}
+        object.__setattr__(state, "_committee_caches", cache)
+    return cache
+
+
 def get_active_validator_indices(state, epoch: int) -> np.ndarray:
-    return np.array(
-        [i for i, v in enumerate(state.validators) if is_active_validator(v, epoch)],
-        dtype=np.uint64,
-    )
+    """Memoised per (state, epoch); the array is read-only."""
+    cache = _caches(state)
+    key = ("active", epoch)
+    out = cache.get(key)
+    if out is None:
+        out = np.array(
+            [i for i, v in enumerate(state.validators) if is_active_validator(v, epoch)],
+            dtype=np.uint64,
+        )
+        out.setflags(write=False)
+        cache[key] = out
+    return out
 
 
 def get_randao_mix(spec: ChainSpec, state, epoch: int) -> bytes:
@@ -140,10 +169,7 @@ def get_beacon_committee(spec: ChainSpec, state, slot: int, index: int) -> np.nd
 
 def _committee_cache(spec: ChainSpec, state, epoch: int) -> CommitteeCache:
     """Per-state memo of up to 3 epochs (reference keeps prev/cur/next)."""
-    cache = getattr(state, "_committee_caches", None)
-    if cache is None:
-        cache = {}
-        object.__setattr__(state, "_committee_caches", cache)
+    cache = _caches(state)
     key = epoch
     if key not in cache:
         cache[key] = CommitteeCache(spec, state, epoch)
@@ -197,8 +223,16 @@ def get_total_balance(spec: ChainSpec, state, indices) -> int:
 
 
 def get_total_active_balance(spec: ChainSpec, state) -> int:
+    """Memoised per (state, epoch)."""
     epoch = get_current_epoch(spec, state)
-    return get_total_balance(spec, state, get_active_validator_indices(state, epoch))
+    cache = _caches(state)
+    key = ("total_active_balance", epoch)
+    total = cache.get(key)
+    if total is None:
+        total = cache[key] = get_total_balance(
+            spec, state, get_active_validator_indices(state, epoch)
+        )
+    return total
 
 
 def get_attesting_indices(spec: ChainSpec, state, data, aggregation_bits) -> np.ndarray:

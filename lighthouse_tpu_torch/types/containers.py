@@ -180,6 +180,20 @@ class SignedVoluntaryExit(Container):
 # -- preset-parameterized containers ----------------------------------------------
 
 
+class _BeaconStateBase(Container):
+    """The base of every fork's ``BeaconState``: a copy also carries the
+    state's per-epoch caches (``_committee_caches``, kept by
+    ``state_transition.beacon_state_util``). The copy is at the original's
+    epoch, so they hold for it until its own epoch changes."""
+
+    def copy(self):
+        new = super().copy()
+        caches = self.__dict__.get("_committee_caches")
+        if caches:
+            new.__dict__["_committee_caches"] = dict(caches)
+        return new
+
+
 @functools.lru_cache(maxsize=None)
 def for_preset(preset_name: str) -> SimpleNamespace:
     p: Preset = PRESETS[preset_name]
@@ -305,7 +319,7 @@ def for_preset(preset_name: str) -> SimpleNamespace:
     class SignedBeaconBlock(Container):
         FIELDS = [("message", BeaconBlock), ("signature", BLSSignature)]
 
-    class BeaconState(Container):
+    class BeaconState(_BeaconStateBase):
         FIELDS = [
             ("genesis_time", uint64),
             ("genesis_validators_root", Root),
@@ -351,7 +365,7 @@ def for_preset(preset_name: str) -> SimpleNamespace:
     class SignedBeaconBlockAltair(Container):
         FIELDS = [("message", BeaconBlockAltair), ("signature", BLSSignature)]
 
-    class BeaconStateAltair(Container):
+    class BeaconStateAltair(_BeaconStateBase):
         FIELDS = [
             f for f in BeaconState.FIELDS
             if f[0] not in ("previous_epoch_attestations", "current_epoch_attestations")
@@ -453,13 +467,13 @@ def for_preset(preset_name: str) -> SimpleNamespace:
     class SignedBeaconBlockCapella(Container):
         FIELDS = [("message", BeaconBlockCapella), ("signature", BLSSignature)]
 
-    class BeaconStateBellatrix(Container):
+    class BeaconStateBellatrix(_BeaconStateBase):
         FIELDS = BeaconStateAltair.FIELDS + [
             ("latest_execution_payload_header", ExecutionPayloadHeaderBellatrix),
         ]
         fork_name = "bellatrix"
 
-    class BeaconStateCapella(Container):
+    class BeaconStateCapella(_BeaconStateBase):
         FIELDS = [
             (n, t)
             if n != "latest_execution_payload_header"
@@ -510,7 +524,7 @@ def for_preset(preset_name: str) -> SimpleNamespace:
     class SignedBeaconBlockDeneb(Container):
         FIELDS = [("message", BeaconBlockDeneb), ("signature", BLSSignature)]
 
-    class BeaconStateDeneb(Container):
+    class BeaconStateDeneb(_BeaconStateBase):
         FIELDS = [
             (n, t)
             if n != "latest_execution_payload_header"
@@ -702,7 +716,7 @@ def for_preset(preset_name: str) -> SimpleNamespace:
     class SignedBeaconBlockElectra(Container):
         FIELDS = [("message", BeaconBlockElectra), ("signature", BLSSignature)]
 
-    class BeaconStateElectra(Container):
+    class BeaconStateElectra(_BeaconStateBase):
         FIELDS = BeaconStateDeneb.FIELDS + [
             ("deposit_requests_start_index", uint64),
             ("deposit_balance_to_consume", Gwei),

@@ -2,10 +2,11 @@
 ``lighthouse_tpu/utils/metrics.py``.
 
 The collectors (Counter, Gauge, Histogram, Registry) and only the metric
-families the port's firehose, resilience and epoch-engine modules record
-into. Names follow Lighthouse's so dashboards transfer. Collectors are
-process-global and cheap enough for hot paths (an observe is a couple of
-dict ops); exposition is the Prometheus text format.
+families the port's modules record into (chain, beacon processor, store,
+caches, firehose, resilience, epoch engine). Names follow Lighthouse's so
+dashboards transfer. Collectors are process-global and cheap enough for hot
+paths (an observe is a couple of dict ops); exposition is the Prometheus
+text format.
 """
 
 from __future__ import annotations
@@ -167,6 +168,69 @@ class Registry:
 REGISTRY = Registry()
 
 # -- the metric families the port records (names mirror Lighthouse) ---------------
+
+BLOCK_PROCESSING_TIMES = REGISTRY.histogram(
+    "beacon_block_processing_seconds",
+    "Full runtime of block processing (beacon_chain/src/metrics.rs)",
+)
+
+ATTESTATION_BATCH_SETUP_TIMES = REGISTRY.histogram(
+    "beacon_attestation_batch_signature_setup_times",
+    "Batch attestation signature-set construction "
+    "(attestation_verification/batch.rs:57)",
+)
+
+ATTESTATION_BATCH_VERIFY_TIMES = REGISTRY.histogram(
+    "beacon_attestation_batch_signature_verify_times",
+    "Batch attestation signature verification "
+    "(attestation_verification/batch.rs:106)",
+)
+
+FORK_CHOICE_GET_HEAD_TIMES = REGISTRY.histogram(
+    "beacon_fork_choice_get_head_seconds",
+    "Fork-choice head computation",
+)
+
+PROCESSOR_WORK_EVENTS = REGISTRY.counter(
+    "beacon_processor_work_events_total",
+    "Work events accepted by the beacon processor",
+    label_names=("work_type",),
+)
+
+PROCESSOR_QUEUE_LENGTH = REGISTRY.gauge(
+    "beacon_processor_queue_length",
+    "Current per-work-type queue length",
+    label_names=("work_type",),
+)
+
+PROCESSOR_OVERFLOW_DROPS = REGISTRY.counter(
+    "beacon_processor_overflow_drops_total",
+    "Work dropped on queue overflow, per work type",
+    label_names=("work_type",),
+)
+
+PROCESSOR_EXPIRED_DROPS = REGISTRY.counter(
+    "beacon_processor_expired_drops_total",
+    "Work dropped past its deadline before dispatch, per work type",
+    label_names=("work_type",),
+)
+
+FIREHOSE_SHUFFLING_CACHE = REGISTRY.counter(
+    "firehose_shuffling_cache_total",
+    "Attester/shuffling cache tier lookups (hit / miss)",
+    label_names=("result",),
+)
+
+EARLY_ATTESTER_CACHE = REGISTRY.counter(
+    "early_attester_cache_total",
+    "Head-block attestation-data cache lookups (hit / miss / evict)",
+    label_names=("result",),
+)
+
+STORE_FREEZE_TIMES = REGISTRY.histogram(
+    "store_beacon_state_freeze_seconds",
+    "Cold-migration time per state (store/src/metrics.rs)",
+)
 
 GOSSIP_VERDICT_LATENCY = REGISTRY.histogram(
     "gossip_verdict_latency_seconds",

@@ -119,6 +119,30 @@ def test_registry_roots_after_mutation_match_reference():
     assert typ_p.hash_tree_root(pv) == typ_r.hash_tree_root(rv)
 
 
+def test_registry_encode_matches_reference():
+    """Lists of fixed-size containers encode column by column in the port:
+    the same bytes as the reference's per-element encode, at the field
+    extremes; an out-of-range value raises as the per-element encode does."""
+    rng = np.random.default_rng(6)
+    rv = [_rand(r_con.Validator, rng) for _ in range(200)]
+    for i, (f, v) in enumerate([("exit_epoch", 2**64 - 1), ("slashed", True),
+                                ("slashed", False), ("effective_balance", 0),
+                                ("activation_epoch", 2**63)]):
+        setattr(rv[5 * i], f, v)
+    typ_r = r_ssz.List(r_con.Validator, 1 << 40)
+    typ_p = p_ssz.List(p_con.Validator, 1 << 40)
+    pv = typ_p.decode(typ_r.encode(rv))
+    assert typ_p.encode(pv) == typ_r.encode(rv)
+    assert typ_p.encode([]) == typ_r.encode([])
+    pv[3].effective_balance = 2**64
+    with pytest.raises(OverflowError):
+        typ_p.encode(pv)
+    pv[3].effective_balance = 1
+    pv[4].pubkey = b"\x01" * 47
+    with pytest.raises(p_ssz.SSZError):
+        typ_p.encode(pv)
+
+
 @pytest.mark.parametrize("n", [1, 7, 300, 5000])
 def test_hash_primitives_match_reference(n):
     rng = np.random.default_rng(n)

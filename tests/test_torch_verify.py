@@ -287,7 +287,12 @@ import lighthouse_tpu_torch.bls, lighthouse_tpu_torch.firehose, lighthouse_tpu_t
 import lighthouse_tpu_torch.utils.metrics, lighthouse_tpu_torch.beacon_processor
 import lighthouse_tpu_torch.ssz, lighthouse_tpu_torch.types, lighthouse_tpu_torch.ops.shuffle
 import lighthouse_tpu_torch.epoch_engine.engine, lighthouse_tpu_torch.convert
+import lighthouse_tpu_torch.fork_choice, lighthouse_tpu_torch.store, lighthouse_tpu_torch.op_pool
+import lighthouse_tpu_torch.firehose.attester_cache, lighthouse_tpu_torch.execution_layer
+import lighthouse_tpu_torch.utils.logging, lighthouse_tpu_torch.resilience.crashpoints
 from lighthouse_tpu_torch import epoch_engine, state_transition
+from lighthouse_tpu_torch.beacon_chain import BeaconChain
+from lighthouse_tpu_torch.beacon_processor import BeaconProcessor
 from lighthouse_tpu_torch.state_transition.genesis import interop_genesis_state
 from lighthouse_tpu_torch.types.spec import minimal_spec
 raw = np.frombuffer(bytes.fromhex({raw.tobytes().hex()!r}), np.uint8).reshape(8, 96)
@@ -299,6 +304,10 @@ spec = minimal_spec(altair_fork_epoch=0)
 state = interop_genesis_state(spec, 16)
 state_transition.process_slots(spec, state, spec.preset.SLOTS_PER_EPOCH + 1)
 ok = ok and state.slot == spec.preset.SLOTS_PER_EPOCH + 1
+lighthouse_tpu_torch.bls.set_backend("oracle")
+chain = BeaconChain(spec, state)
+ok = ok and chain.head.slot == state.slot and len(chain.pubkey_cache) == 16
+BeaconProcessor(synchronous=True).shutdown()
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "lighthouse_tpu" or m.startswith("lighthouse_tpu.")]
 print(ok, bad)
