@@ -75,8 +75,31 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      Each import runs with the supervisors' default configuration and is
      split into its parts; the second one's last slot, boundary and block
      processing are then replayed on a copy under the profiler.
-Phases 8-10, 12 and 13 each set the counts to 0 before and read them after,
-as phase 5 does, and hold any shape they launched that phase 4 did not see.
+ 14. a sampling node's slot of blob data on phase 13's chain (PeerDAS at
+     mainnet geometry: the port's trusted setup, 128 cells of 64 field
+     elements, MAX_BLOBS_PER_BLOCK = 6 blobs of 4096 random field elements,
+     custody 4 and 8 samples per slot; the commitments and the required
+     columns' cell proofs built by the port's device MSM in phases 2 and
+     14): a signed block one slot after the head carrying the commitments
+     raises BlockPendingAvailability with head and store unchanged; a
+     required column with another blob's cell swapped in is rejected by
+     ``verify_data_column_sidecar`` and never marked verified; each honest
+     required column is verified on the card, put into the chain and
+     recorded by the sampler, the block available only after the last;
+     ``notify_columns`` releases it and the chain imports it (head, stored
+     post-state root); every required cell in one ``verify_cell_proof_batch``
+     (n_pad 64 or 128, as the slot's samples fall) True, one column's cells
+     True through the host ``CellContext`` loop too; the blobs' batch proof
+     True on the host and False with one proof swapped; one pairing check
+     with two pairs per batch (``PROBE``); a clean ``kzg_device`` supervisor. Timed: column
+     verifies (5), the batch (3, its kernel rows timed at its own n_pad),
+     the table builds, each proof MSM; one column verify, the batch and its
+     Fr stage under the profiler.
+Phases 8-10 and 12-14 each set the counts to 0 before and read them after,
+as phase 5 does, and hold any shape they launched that phase 4 did not see
+(phase 14's column and batch shapes must all be among phase 4's: its
+warm-up in phase 3 runs one column verify and a batch at each n_pad a
+slot's required cells can give, 64 and 128).
 
 Full configuration: 2^20 validator pubkeys resident as the [N, 3, 25]
 cache (mainnet); main path batches of 64 aggregate signature sets, 512 keys
@@ -84,8 +107,9 @@ per set, 4 timed batches; a block of 131 sets (proposer, randao, 128
 attestation aggregates and one sync aggregate of --keys = 512 keys); a gossip pool
 of 64 committees x 32 attesters; the state transition over all 2^20
 validators (the parity boundary at 2^18), its block carrying 262,658 keys in
-11 sets; the chain over the same 2^20 registry. The last line of stdout is the result object; the line before it
-the kernel table; before that the card's name and power limit.
+11 sets; the chain over the same 2^20 registry; PeerDAS at mainnet geometry
+(nothing cut). The last line of stdout is the result object; the line before
+it the kernel table; before that the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -109,6 +133,8 @@ EPOCH_TIMED = 3  # timed epoch boundaries, between one warm-up and one profiled
 PARITY_VALIDATORS = 1 << 18  # the largest registry bench.py holds against its numpy twin
 STATE_EPOCH = 101  # bench.py's epoch: no eth1, sync-committee or history boundary follows soon
 ATT_SLOTS = 8  # attestations in the state-transition block (one per slot, all committees)
+KZG_COLUMN_REPS = 5  # timed column verifies (phase 14)
+KZG_BATCH_REPS = 3  # timed batches of every required cell (phase 14)
 # int32 multiply-add rate outside the tensor cores: an H100 SM has half as
 # many INT32 lanes as FP32 lanes, so half the 67 TFLOP/s fp32 peak
 H100_INT32_OPS_PER_S = 33.5e12
@@ -1391,6 +1417,487 @@ def chain_phase(spec, anchor, raw, sk0: int, sync_idx, block, bad, dev_cache, de
         f"({out['firehose']['verified_att_per_s']:.2f} att/s, {fst.batches_formed} batches); "
         f"bls_device clean, no oracle rung; host peak RSS {rss} bytes")
     out["runs"] = runs
+    return out, chain
+
+
+# --------------------------------------------------------------------------------------
+# PeerDAS columns (phase 14)
+# --------------------------------------------------------------------------------------
+
+
+def _cell_rows(ctx, blobs) -> list:
+    """Per blob: its coefficient form and the field values of all its cells
+    (host FFTs, as ``CellContext.compute_cells_and_kzg_proofs`` computes them)."""
+    rows = []
+    for blob in blobs:
+        coeffs = ctx.blob_to_coeffs(blob)
+        rows.append((coeffs, ctx.cells_from_coeffs(coeffs)))
+    return rows
+
+
+def _cell_proofs(ctx, rows, columns, dev=None, ms=None) -> dict:
+    """{(blob, column): proof} for ``columns`` only: one
+    ``CellContext._cell_proof`` per cell — at mainnet geometry one device MSM
+    over 4032 setup points when ``ctx`` runs its MSMs on the device. Each
+    proof's wall ms (to the synchronised result) is appended to ``ms``."""
+    out = {}
+    for b, (coeffs, vals) in enumerate(rows):
+        for col in columns:
+            t = time.perf_counter()
+            out[(b, col)] = ctx._cell_proof(coeffs, col, vals[col])
+            if dev is not None:
+                _sync(dev)
+            if ms is not None:
+                ms.append((time.perf_counter() - t) * 1e3)
+    return out
+
+
+def _column_sidecars(ns, signed_block, rows, proofs, columns) -> dict:
+    """The sidecars ``make_data_column_sidecars`` builds, for ``columns``
+    only ({column: sidecar}): the cells of every blob, the proofs of
+    ``_cell_proofs``, the block's signed header and the commitments' inclusion
+    proof."""
+    from lighthouse_tpu_torch.beacon_chain.data_columns import commitments_list_inclusion_proof
+    from lighthouse_tpu_torch.kzg.fr import bls_field_to_bytes
+    from lighthouse_tpu_torch.types.containers import BeaconBlockHeader, SignedBeaconBlockHeader
+
+    blk = signed_block.message
+    header = SignedBeaconBlockHeader(
+        message=BeaconBlockHeader(slot=blk.slot, proposer_index=blk.proposer_index,
+                                  parent_root=blk.parent_root, state_root=blk.state_root,
+                                  body_root=blk.body.tree_root()),
+        signature=signed_block.signature,
+    )
+    inclusion = commitments_list_inclusion_proof(blk.body)
+    commitments = [bytes(c) for c in blk.body.blob_kzg_commitments]
+    pad = b"\x00" * (ns.BYTES_PER_CELL - len(rows[0][1][0]) * 32)
+    return {
+        col: ns.DataColumnSidecar(
+            index=col,
+            column=[b"".join(bls_field_to_bytes(v) for v in vals[col]) + pad for _, vals in rows],
+            kzg_commitments=commitments,
+            kzg_proofs=[proofs[(b, col)] for b in range(len(rows))],
+            signed_block_header=header,
+            kzg_commitments_inclusion_proof=inclusion,
+        )
+        for col in columns
+    }
+
+
+def _cell_bytes(rows, b: int, col: int) -> bytes:
+    from lighthouse_tpu_torch.kzg.fr import bls_field_to_bytes
+
+    return b"".join(bls_field_to_bytes(v) for v in rows[b][1][col])
+
+
+def _column_claims(kz, columns) -> tuple:
+    """(commitments, cell indices, cells, proofs) of every blob's cell in
+    ``columns``, column by column: the lists ``verify_cell_proof_batch``
+    takes."""
+    n = len(kz["blobs"])
+    items = [(b, c) for c in columns for b in range(n)]
+    return ([kz["commitments"][b] for b, _ in items], [c for _, c in items],
+            [_cell_bytes(kz["rows"], b, c) for b, c in items],
+            [kz["proofs"][(b, c)] for b, c in items])
+
+
+def kzg_fixture(seed: int, dev) -> dict:
+    """Phase 2's PeerDAS part: the port's mainnet trusted setup, a
+    ``CellContext`` at 128 cells of 64 field elements whose MSMs run on the
+    device, MAX_BLOBS_PER_BLOCK blobs of 4096 random field elements, their
+    commitments and blob proofs (one 4096-lane device MSM each), a node id
+    and its custody columns, and the custody columns' cell proofs (one
+    4032-lane device MSM each). The sampled columns' proofs wait for the
+    block root (phase 14)."""
+    import hashlib
+
+    import numpy as np
+
+    from lighthouse_tpu_torch.beacon_chain.data_columns import CUSTODY_REQUIREMENT, custody_columns
+    from lighthouse_tpu_torch.kzg import Kzg, load_trusted_setup
+    from lighthouse_tpu_torch.kzg.cells import CellContext
+    from lighthouse_tpu_torch.kzg.fr import bls_field_to_bytes
+    from lighthouse_tpu_torch.oracle.fields import R
+    from lighthouse_tpu_torch.types.spec import mainnet_spec
+
+    kz = {}
+    t = time.time()
+    setup = load_trusted_setup()
+    kz["setup_s"] = time.time() - t
+    kzg = Kzg(setup)
+    ctx = CellContext(kzg, 128, msm_backend="device")  # on the bls seam's device
+    kz.update(kzg=kzg, ctx=ctx, host_ctx=CellContext(kzg, 128, msm_backend="host"))
+    n_blobs = mainnet_spec().preset.MAX_BLOBS_PER_BLOCK
+    rng = np.random.default_rng(seed + 14)
+    kz["blobs"] = [
+        b"".join(bls_field_to_bytes(int.from_bytes(rng.bytes(32), "big") % R)
+                 for _ in range(kzg.n))
+        for _ in range(n_blobs)
+    ]
+    kz["commit_ms"], kz["commitments"], kz["blob_proofs"] = [], [], []
+    for blob in kz["blobs"]:
+        t = time.perf_counter()
+        c = kzg.blob_to_kzg_commitment(blob)
+        _sync(dev)
+        kz["commit_ms"].append((time.perf_counter() - t) * 1e3)
+        kz["commitments"].append(c)
+        kz["blob_proofs"].append(kzg.compute_blob_kzg_proof(blob, c))
+    kz["node_id"] = hashlib.sha256(b"chip_smoke node " + seed.to_bytes(8, "little")).digest()
+    kz["custody"] = custody_columns(kz["node_id"], CUSTODY_REQUIREMENT, ctx.cells)
+    t = time.time()
+    kz["rows"] = _cell_rows(ctx, kz["blobs"])
+    kz["cells_s"] = time.time() - t
+    kz["proof_ms"] = []
+    kz["proofs"] = _cell_proofs(ctx, kz["rows"], kz["custody"], dev, kz["proof_ms"])
+    return kz
+
+
+def kzg_warmup(kz, dev) -> dict:
+    """Phase 3's PeerDAS part: the engine's batch tables and its coset-shift
+    table built once each (timed; only the single-cell check reads the
+    latter), then one column verify (one custody column's cells) and one
+    batch at each row count a slot's required cells can pad to (custody
+    plus samples: 8 to 12 columns; the custody cells repeated to 8 and 12
+    columns' worth: n_pad 64 and 128) through ``verify_cell_proof_batch``.
+    Returns each one's launch log, the batches' under "batches" by n_pad."""
+    from lighthouse_tpu_torch.beacon_chain.peerdas import SAMPLES_PER_SLOT
+    from lighthouse_tpu_torch.kzg import engine as kzg_engine
+    from lighthouse_tpu_torch.ops.bls import fused_mul as fm
+
+    ctx, logs = kz["ctx"], {"batches": {}}
+    kzg_engine.set_kzg_backend("device", device=dev)
+    eng = kzg_engine.get_engine(ctx)
+    fm.reset_counts()
+    eng.tables()
+    eng.z2_tab  # built here to time it and hold its chains exact in phase 4
+    logs["tables"] = dict(fm.launch_log)
+    kz.update(table_build_s=eng.table_build_s, z2_build_s=eng.z2_build_s,
+              table_bytes=eng.table_bytes())
+    fm.reset_counts()
+    if not kzg_engine.verify_cell_proof_batch(ctx, *_column_claims(kz, kz["custody"][:1])):
+        raise RuntimeError("warm-up: a custody column did not verify")
+    logs["kzg_column"] = dict(fm.launch_log)
+    claims = _column_claims(kz, kz["custody"])
+    n_blobs, n_cust = len(kz["blobs"]), len(kz["custody"])
+    for n_cols in (max(n_cust, SAMPLES_PER_SLOT), n_cust + SAMPLES_PER_SLOT):
+        n = n_cols * n_blobs
+        batch = tuple((x * (n // len(x) + 1))[:n] for x in claims)
+        fm.reset_counts()
+        if not kzg_engine.verify_cell_proof_batch(ctx, *batch):
+            raise RuntimeError(f"warm-up: the {n}-cell batch did not verify")
+        logs["batches"][kzg_engine._bucket(n, floor=4)] = dict(fm.launch_log)
+    return logs
+
+
+def _blob_block(spec, chain, secret_key, rng, commitments):
+    """A signed electra block one slot after the chain's head carrying the
+    blob ``commitments`` (no attestations, an empty sync aggregate with the
+    infinity signature), its state root from a dry run without signatures,
+    then the proposer's signature (``secret_key(i)`` is validator i's)."""
+    import numpy as np
+
+    from lighthouse_tpu_torch import state_transition as st
+    from lighthouse_tpu_torch.oracle import ciphersuite as cs
+    from lighthouse_tpu_torch.oracle import curves as oc
+    from lighthouse_tpu_torch.oracle.fields import R
+    from lighthouse_tpu_torch.ssz import uint64
+    from lighthouse_tpu_torch.state_transition.per_block import (
+        _expected_withdrawals_list,
+        compute_timestamp_at_slot,
+    )
+    from lighthouse_tpu_torch.types.containers import SigningData, for_preset
+    from lighthouse_tpu_torch.types.helpers import compute_signing_root, get_domain
+
+    def sign(sk, root):
+        return oc.g2_compress(cs.sign(sk % R, root))
+
+    ns = for_preset(spec.preset.name)
+    slot = int(chain.head.slot) + 1
+    state = chain.get_state_for_block(chain.head.root, slot)
+    epoch = slot // spec.preset.SLOTS_PER_EPOCH
+    proposer = st.get_beacon_proposer_index(spec, state)
+    randao_root = SigningData(
+        object_root=uint64.hash_tree_root(epoch),
+        domain=get_domain(spec, state, spec.DOMAIN_RANDAO, epoch=epoch),
+    ).tree_root()
+    header = state.latest_execution_payload_header
+    payload = ns.payload_types["electra"](
+        parent_hash=bytes(header.block_hash), prev_randao=st.get_randao_mix(spec, state, epoch),
+        timestamp=compute_timestamp_at_slot(spec, state, slot),
+        block_number=int(header.block_number) + 1, block_hash=rng.bytes(32),
+        withdrawals=_expected_withdrawals_list(spec, state),
+    )
+    sync = ns.SyncAggregate(
+        sync_committee_bits=np.zeros(spec.preset.SYNC_COMMITTEE_SIZE, dtype=bool),
+        sync_committee_signature=b"\xc0" + b"\x00" * 95,
+    )
+    body = ns.body_types["electra"](
+        randao_reveal=sign(secret_key(proposer), randao_root), eth1_data=state.eth1_data,
+        sync_aggregate=sync, execution_payload=payload, blob_kzg_commitments=list(commitments),
+    )
+    block_cls = ns.block_types["electra"]
+    block = dict(block_cls.FIELDS)["message"](
+        slot=slot, proposer_index=proposer, parent_root=chain.head.root,
+        state_root=b"\x00" * 32, body=body,
+    )
+    domain = get_domain(spec, state, spec.DOMAIN_BEACON_PROPOSER, epoch=epoch)
+    st.per_block_processing(spec, state, block_cls(message=block, signature=b"\x00" * 96),
+                            strategy=st.BlockSignatureStrategy.NO_VERIFICATION,
+                            verify_block_root=False)
+    block.state_root = state.tree_root()
+    del state
+    return block_cls(message=block,
+                     signature=sign(secret_key(proposer), compute_signing_root(block, domain)))
+
+
+def _fr_stage_bound(n_pad: int, k: int):
+    """The Fr stage's least time on the card (``batch_scalars`` on n_pad rows
+    of k field elements): the limb multiply-adds of its Fr products
+    (interpolation n_pad k^2, the descaled weights and their weighted sum
+    2 n_pad k, the shift weights n_pad; an Fr value fills 16 16-bit limbs,
+    so 16 x 16 per product, a multiply-add counting two) against its bytes
+    (cell values, weights, the inverse-NTT matrix, the gathered descale and
+    shift rows read once, the setup scalars and shift weights written once,
+    32 bytes per Fr value; the int64 indices read once)."""
+    n_ops = 2 * 16 * 16 * (n_pad * k * k + 2 * n_pad * k + n_pad)
+    n_bytes = 32 * (n_pad * k + n_pad + k * k + n_pad * k + n_pad + k + n_pad) + 8 * n_pad
+    return _bound(n_ops, n_bytes)
+
+
+def kzg_phase(spec, chain, kz, secret_key, dev, rng) -> dict:
+    """Phase 14: one slot of blob data on a sampling node — the chain of
+    phase 13 with column sampling on (custody 4, 8 samples), a block one
+    slot after its head carrying the blobs' commitments; pending, a poisoned
+    column rejected, the required columns verified on the card one by one
+    until the block is available and imported; all their cells in one
+    batch; the blobs' batch proof on the host. Counts are set to 0 before
+    each run and read after it (``runs``)."""
+    import torch
+
+    from lighthouse_tpu_torch import resilience
+    from lighthouse_tpu_torch.beacon_chain.chain import BlockPendingAvailability
+    from lighthouse_tpu_torch.beacon_chain.data_columns import (
+        DataColumnError,
+        verify_data_column_sidecar,
+    )
+    from lighthouse_tpu_torch.kzg import engine as kzg_engine
+    from lighthouse_tpu_torch.ops.bls import fused_mul as fm
+    from lighthouse_tpu_torch.ops.kzg import verify as kverify
+    from lighthouse_tpu_torch.types.containers import for_preset
+
+    ns, ctx, kzg = for_preset(spec.preset.name), kz["ctx"], kz["kzg"]
+    out, runs = {}, {}
+    kzg_engine.set_kzg_backend("device", device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    sampler = chain.enable_peerdas(ctx, kz["node_id"])
+    if sampler.custody != kz["custody"]:
+        raise RuntimeError("the sampler's custody != the fixture's")
+
+    # the block and gate 1: pending
+    t = time.time()
+    block = _blob_block(spec, chain, secret_key, rng, kz["commitments"])
+    out["build_s"] = time.time() - t
+    root, slot = block.message.tree_root(), int(block.message.slot)
+    chain.slot_clock.set_slot(slot)
+    head0, keys0 = chain.head.root, sorted(chain.store.hot._data)
+    fm.reset_counts()
+    try:
+        chain.process_block(block)
+    except BlockPendingAvailability as e:
+        if e.block_root != root:
+            raise RuntimeError("pending: another root") from None
+    else:
+        raise RuntimeError("the blob block was imported without its columns")
+    runs["kzg_pending"] = _read_counts("kzg pending block", need=())
+    if fm.launches or chain.head.root != head0 or sorted(chain.store.hot._data) != keys0:
+        raise RuntimeError("the pending block launched a kernel or changed the head or store")
+    need = sampler.required_columns(root)
+    extra = [c for c in need if c not in kz["custody"]]
+    t = time.time()
+    ms = kz["proof_ms"]
+    kz["proofs"].update(_cell_proofs(ctx, kz["rows"], extra, dev, ms))
+    sidecars = _column_sidecars(ns, block, kz["rows"], kz["proofs"], need)
+    out.update(required=need, sampled=sampler.sample_columns(root), custody=kz["custody"],
+               sample_proofs_s=time.time() - t)
+    log(f"kzg: block at slot {slot} with {len(kz['commitments'])} blob commitments built in "
+        f"{out['build_s']:.1f} s; process_block raised BlockPendingAvailability, head and store "
+        f"unchanged, no launch; required columns {need} (custody {kz['custody']}); "
+        f"{len(extra) * len(kz['blobs'])} sampled cell proofs on the device in "
+        f"{out['sample_proofs_s']:.1f} s")
+
+    sup = resilience.kzg_supervisor()
+    snap0 = sup.snapshot()
+    # gate 2: a column with another blob's cell swapped in
+    src = sidecars[need[0]]
+    bad = ns.DataColumnSidecar.decode(ns.DataColumnSidecar.encode(src))
+    bad.column[0] = bytes(src.column[1])
+    fm.reset_counts()
+    try:
+        verify_data_column_sidecar(ns, bad, ctx)
+    except DataColumnError as e:
+        poison_err = str(e)
+    else:
+        raise RuntimeError("the poisoned column verified")
+    runs["kzg_poisoned"] = _read_counts("kzg poisoned column")
+    if sampler.verified_columns(root) or chain.data_columns_for(root):
+        raise RuntimeError("the poisoned column was marked verified")
+
+    # gates 3 and 4: the honest columns one by one, then the import
+    fm.reset_counts()
+    col_ms = []
+    for i, c in enumerate(need):
+        t = time.perf_counter()
+        verify_data_column_sidecar(ns, sidecars[c], ctx)
+        _sync(dev)
+        col_ms.append((time.perf_counter() - t) * 1e3)
+        if chain.put_data_column(sidecars[c]) != root:
+            raise RuntimeError("put_data_column: another root")
+        sampler.on_verified_column(root, c)
+        if i < len(need) - 1 and (sampler.is_available(root)
+                                  or chain.da_checker.notify_columns(root) is not None):
+            raise RuntimeError(f"available after {i + 1} of {len(need)} columns")
+    runs["kzg_columns"] = _read_counts("kzg column verifies")
+    if not sampler.is_available(root) or sorted(chain.data_columns_for(root)) != need:
+        raise RuntimeError("not available after every required column")
+    released = chain.da_checker.notify_columns(root)
+    if released is None or released[1] != []:
+        raise RuntimeError("notify_columns did not release the block")
+    fm.reset_counts()
+    t = time.time()
+    with chain.lock:
+        chain._process_block_locked(released[0], released[0].message, root, True,
+                                    check_availability=False)
+    _sync(dev)
+    out["import_s"] = time.time() - t
+    runs["kzg_import"] = _read_counts("kzg block import")
+    sr = bytes(block.message.state_root)
+    if chain.head.root != root or chain.store.get_state(sr) is None:
+        raise RuntimeError("the released block did not become head with its state stored")
+    if chain.state_by_root(root).tree_root() != sr:
+        raise RuntimeError("the imported post-state root != the block's state_root")
+    log(f"kzg: poisoned column {need[0]} rejected ({poison_err}), never marked verified; "
+        f"{len(need)} columns verified on the card and put into the chain one by one "
+        f"({json.dumps([round(x, 2) for x in col_ms])} ms), available only after the last; "
+        f"notify_columns released the block, imported in {out['import_s']:.1f} s: head == block, "
+        f"stored post-state root == block state_root")
+
+    # gate 5: every required cell in one batch; one column through the host loop
+    claims = _column_claims(kz, need)
+    n_cells = len(claims[2])
+    probe0 = dict(kverify.PROBE)
+    batch_ms = []
+    fm.reset_counts()
+    for _ in range(KZG_BATCH_REPS):
+        t = time.perf_counter()
+        ok = kzg_engine.verify_cell_proof_batch(ctx, *claims)
+        _sync(dev)
+        batch_ms.append((time.perf_counter() - t) * 1e3)
+        if ok is not True:
+            raise RuntimeError(f"the {n_cells}-cell batch did not verify")
+    runs["kzg_batch"] = _read_counts("kzg cell batch")
+    probe = {k: kverify.PROBE[k] - probe0[k] for k in probe0}
+    if probe != {"pairing_checks": KZG_BATCH_REPS, "pairs": 2 * KZG_BATCH_REPS,
+                 "scale_scans": KZG_BATCH_REPS}:
+        raise RuntimeError(f"PROBE over {KZG_BATCH_REPS} batches: {probe}")
+    one = _column_claims(kz, need[-1:])
+    t = time.time()
+    host_ok = kz["host_ctx"].verify_cell_kzg_proof_batch(*one)
+    host_s = time.time() - t
+    if host_ok is not True:
+        raise RuntimeError("the host CellContext loop rejected an honest column")
+
+    # timed column verifies (the entry a node calls per column)
+    probe0 = dict(kverify.PROBE)
+    col_ms = []
+    fm.reset_counts()
+    for _ in range(KZG_COLUMN_REPS):
+        t = time.perf_counter()
+        verify_data_column_sidecar(ns, sidecars[need[-1]], ctx)
+        _sync(dev)
+        col_ms.append((time.perf_counter() - t) * 1e3)
+    runs["kzg_column"] = _read_counts("kzg timed column verifies")
+    probe = {k: kverify.PROBE[k] - probe0[k] for k in probe0}
+    if probe != {"pairing_checks": KZG_COLUMN_REPS, "pairs": 2 * KZG_COLUMN_REPS,
+                 "scale_scans": KZG_COLUMN_REPS}:
+        raise RuntimeError(f"PROBE over {KZG_COLUMN_REPS} column verifies: {probe}")
+
+    # gate 6: the blobs' batch proof on the host
+    t = time.time()
+    blob_ok = kzg.verify_blob_kzg_proof_batch(kz["blobs"], kz["commitments"], kz["blob_proofs"])
+    swapped = [kz["blob_proofs"][1], kz["blob_proofs"][0]] + kz["blob_proofs"][2:]
+    blob_bad = kzg.verify_blob_kzg_proof_batch(kz["blobs"], kz["commitments"], swapped)
+    blob_s = time.time() - t
+    if blob_ok is not True or blob_bad is not False:
+        raise RuntimeError(f"verify_blob_kzg_proof_batch: {blob_ok}, swapped {blob_bad}")
+
+    # the profiles: a column verify, the batch, and the batch's Fr stage alone
+    eng = kzg_engine.get_engine(ctx)
+    deadline = sup.config.deadline_s
+    try:
+        sup.config.deadline_s = 0  # the rungs on this thread, so the trace holds them
+        profs = {
+            "column": _profiled(lambda: verify_data_column_sidecar(ns, sidecars[need[-1]], ctx)
+                                is None),
+            "batch": _profiled(lambda: kzg_engine.verify_cell_proof_batch(ctx, *claims)),
+        }
+    finally:
+        sup.config.deadline_s = deadline
+    n_pad = kzg_engine._bucket(n_cells, floor=4)
+    arrays = eng.marshal(*claims, n_pad)
+    tables = eng.tables()
+    kverify.batch_scalars(tables, *arrays[:3])
+    profs["fr_stage"] = _profiled(lambda: kverify.batch_scalars(tables, *arrays[:3]) is not None)
+    fr_bound_ms, fr_bound_by = _fr_stage_bound(n_pad, ctx.k)
+    _clean(snap0, sup.snapshot(), None, "kzg_device")
+    peak = torch.cuda.max_memory_allocated()
+
+    col_t, batch_t = _spread(col_ms), _spread(batch_ms)
+    prof_out = {}
+    for name, (ok, wall, dev_us, ops) in profs.items():
+        if ok is not True:
+            raise RuntimeError(f"the profiled {name} gave {ok}")
+        busy = sum(dev_us.values()) / 1e3
+        base = {"column": col_t["median"], "batch": batch_t["median"]}.get(name)
+        prof_out[name] = {
+            "wall_ms": wall, "busy_ms": busy, "aten_ops": ops,
+            "idle_share": (1 - busy / base) if (busy and base) else None,
+            "device_ms_by_name": {k[:80]: v / 1e3 for k, v in
+                                  sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]},
+        }
+    per = {
+        "column": {k: v / KZG_COLUMN_REPS for k, v in runs["kzg_column"]["by"].items()},
+        "batch": {k: v / KZG_BATCH_REPS for k, v in runs["kzg_batch"]["by"].items()},
+    }
+    out.update(
+        cells=n_cells, n_pad=n_pad, column_ms=col_t, batch_ms=batch_t,
+        table_build_ms=kz["table_build_s"] * 1e3, z2_build_ms=kz["z2_build_s"] * 1e3,
+        table_bytes=kz["table_bytes"],
+        proof_msm_ms=_spread(ms), commit_msm_ms=_spread(kz["commit_ms"]),
+        setup_load_s=kz["setup_s"], cells_fft_s=kz["cells_s"], host_column_s=host_s,
+        blob_batch_s=blob_s, launches_per_verify=per, profiles=prof_out,
+        fr_stage={"device_ms": prof_out["fr_stage"]["busy_ms"], "bound_ms": fr_bound_ms,
+                  "bound_by": fr_bound_by, "n_pad": n_pad, "k": ctx.k},
+        peak_bytes=peak, supervisor=sup.snapshot(), runs=runs,
+    )
+    log(f"kzg: {n_cells} cells of {len(need)} columns in one verify_cell_proof_batch "
+        f"(n_pad {n_pad}) True, {json.dumps(batch_t)} ms over {KZG_BATCH_REPS}; PROBE one "
+        f"pairing check, two pairs, one scale ladder per batch; column {need[-1]}'s "
+        f"{len(one[2])} cells True through the host CellContext loop too ({host_s:.2f} s)")
+    log(f"kzg: column verify (verify_data_column_sidecar, {len(kz['blobs'])} cells, n_pad "
+        f"{kzg_engine._bucket(len(kz['blobs']), floor=4)}) "
+        f"{json.dumps(col_t)} ms over {KZG_COLUMN_REPS}; launches per verify: column "
+        f"{json.dumps(per['column'])}, batch {json.dumps(per['batch'])}; blob batch proof "
+        f"(host) True, one proof swapped False ({blob_s:.2f} s); table build "
+        f"{out['table_build_ms']:.1f} ms, coset-shift table {out['z2_build_ms']:.1f} ms "
+        f"({kz['table_bytes']} B in all); proof MSM ({kzg.n - ctx.k} "
+        f"lanes) {json.dumps(out['proof_msm_ms'])} ms over {len(ms)}; commitment MSM ({kzg.n} lanes) "
+        f"{json.dumps(out['commit_msm_ms'])} ms; kzg_device clean; peak {peak} B")
+    for name, p in prof_out.items():
+        log(f"kzg profiled {name}: {p['wall_ms']:.2f} ms wall, device busy {p['busy_ms']:.3f} ms, "
+            f"{p['aten_ops']} aten ops, idle share {p['idle_share']}; top "
+            f"{json.dumps({k[:50]: round(v, 4) for k, v in p['device_ms_by_name'].items()})}")
+    log(f"kzg Fr stage (batch_scalars at n_pad {n_pad}, k {ctx.k}): device "
+        f"{out['fr_stage']['device_ms']:.4f} ms, bound {fr_bound_ms:.6f} ms ({fr_bound_by})")
     return out
 
 
@@ -1827,6 +2334,16 @@ def main() -> int:
                        max(1, args.validators // 32))
     log(f"fixture state-block shape: {len(sblock)} sets, "
         f"{sum(len(s.signing_keys) for s in sblock)} keys in {time.time() - t:.2f} s")
+    t = time.time()
+    fm.reset_counts()
+    kz = kzg_fixture(args.seed, dev)
+    kzg_fixture_log = dict(fm.launch_log)
+    log(f"fixture kzg: the port's trusted setup loaded in {kz['setup_s']:.2f} s; "
+        f"{len(kz['blobs'])} blobs of {kz['kzg'].n} field elements, their commitments (one "
+        f"4096-lane device MSM each: {json.dumps(_spread(kz['commit_ms']))} ms) and blob proofs; "
+        f"cells of every blob ({kz['cells_s']:.1f} s of host FFTs); custody columns "
+        f"{kz['custody']} and their {len(kz['proofs'])} cell proofs (one 4032-lane device MSM "
+        f"each: {json.dumps(_spread(kz['proof_ms']))} ms); in {time.time() - t:.1f} s")
     cache = pubkey_cache.device_pubkeys_from_raw(raw, device=dev)
     torch.cuda.synchronize()
 
@@ -1888,6 +2405,13 @@ def main() -> int:
     path_logs["state_block"] = dict(fm.launch_log)
     torch.cuda.synchronize()
     log(f"warm-up of the block, gossip, bisection and state-block paths: {time.time() - t:.2f} s")
+    t = time.time()
+    kz_logs = kzg_warmup(kz, dev)
+    path_logs["kzg_column"] = kz_logs["kzg_column"]  # the batch's rows are timed in phase 14
+    log(f"warm-up of the kzg paths: batch tables built in {kz['table_build_s'] * 1e3:.1f} ms, "
+        f"the coset-shift table in {kz['z2_build_s'] * 1e3:.1f} ms ({kz['table_bytes']} B on "
+        f"the card), one column verify and batches at n_pad {sorted(kz_logs['batches'])} True; "
+        f"{time.time() - t:.2f} s")
 
     # 4. kernels against their plain versions at every shape the paths gave them
     gen = torch.Generator().manual_seed(20261017)
@@ -1895,7 +2419,8 @@ def main() -> int:
     t = time.time()
     n_exact = sum(
         exact_checks(lg, dev, gen, done)
-        for lg in (*path_logs.values(), block_phase_log, bisect_log)
+        for lg in (*path_logs.values(), block_phase_log, bisect_log, kzg_fixture_log,
+                   kz_logs["tables"], *kz_logs["batches"].values())
     )
     log(f"exact: {n_exact} (kernel, schedule or chain, rows) shapes bit-exact against the "
         f"plain versions in {time.time() - t:.2f} s")
@@ -2156,13 +2681,31 @@ def main() -> int:
 
     # 13. the beacon chain over the same registry
     t = time.time()
-    ch = chain_phase(espec, anchor, raw, sk0, sync_idx, sb_block, sb_bad, cache, dev, erng)
+    ch, chain = chain_phase(espec, anchor, raw, sk0, sync_idx, sb_block, sb_bad, cache, dev, erng)
     del anchor
     runs.update(ch.pop("runs"))
     chain_runs = ("chain_import", "chain_import_bad", "chain_import2", "chain_gossip",
                   "chain_aggregates", "chain_firehose")
     n_new = sum(exact_checks(runs[k]["log"], dev, gen, done) for k in chain_runs)
     log(f"chain: {n_new} new shapes checked exact; phase {time.time() - t:.1f} s")
+
+    # 14. a sampling node's slot of blob data on the same chain
+    t = time.time()
+    km = kzg_phase(espec, chain, kz, lambda i: sk0 + i, dev, erng)
+    del chain
+    runs.update(km.pop("runs"))
+    kzg_runs = ("kzg_pending", "kzg_poisoned", "kzg_columns", "kzg_import", "kzg_batch",
+                "kzg_column")
+    unseen = sorted({s for k in ("kzg_poisoned", "kzg_columns", "kzg_batch", "kzg_column")
+                     for s in runs[k]["log"] if s not in done})
+    if unseen:
+        raise RuntimeError(f"kzg: shapes phase 4 did not check: {unseen}")
+    n_new = sum(exact_checks(runs[k]["log"], dev, gen, done) for k in kzg_runs)
+    # the batch's rows timed at its own n_pad (the slot's required set decides it)
+    krows += timed_rows({"kzg_batch": runs["kzg_batch"]["log"]}, dev, gen)
+    log(f"kzg: launches {json.dumps({k: runs[k]['by'] for k in kzg_runs})}; every kzg-path shape "
+        f"checked in phase 4; {n_new} import shapes new since phase 4, checked exact; the batch's "
+        f"rows timed at n_pad {km['n_pad']}; phase {time.time() - t:.1f} s")
 
     log(f"elapsed: {time.time() - t_start:.1f} s")
     table = []
@@ -2204,6 +2747,7 @@ def main() -> int:
                 "epoch": epoch_m, "epoch_parity": parity,
                 "state_block": {**sb, "launches": runs["state_block"]["by"]},
                 "chain": {**ch, "launches": {k: runs[k]["by"] for k in chain_runs}},
+                "kzg": {**km, "launches": {k: runs[k]["by"] for k in kzg_runs}},
             }, f, indent=1)
     print(card, flush=True)
     print(json.dumps({"kernels": table}), flush=True)

@@ -15,10 +15,11 @@ against the pubkey cache's resident tensor, inside the ``bls_device``
 supervisor's ladder (device_full -> device_reduced, failing closed; a
 cpu_oracle rung follows only for a cache on the CPU); under ``"oracle"``
 through the generic ``SignatureSet`` arm. Epoch boundaries inside
-``process_slots`` run in the port's ``epoch_engine``. Paths that reach a
-module the port does not have yet raise ``NotImplementedError`` naming its
-ROADMAP item: PeerDAS columns (Queue 1 item 5) and fork-choice persistence on
-a durable store (item 1). The mesh planner is None (the mesh is off; item 2)
+``process_slots`` run in the port's ``epoch_engine``. PeerDAS column
+sampling (``enable_peerdas``) decides availability from columns verified by
+``beacon_chain.data_columns`` through the port's ``kzg`` engine. Paths that
+reach a module the port does not have yet raise ``NotImplementedError``
+naming its ROADMAP item: fork-choice persistence on a durable store (item 1). The mesh planner is None (the mesh is off; item 2)
 and so is the light-client server cache (item 4).
 """
 
@@ -495,17 +496,44 @@ class BeaconChain:
                        samples_per_slot: int | None = None):
         """Turn on column sampling: availability for blob-carrying blocks is
         then decided by the sampler's custody + sampled column set instead
-        of per-blob sidecar arrival (see ``peerdas.PeerDasSampler``). The
-        port has no column sampler yet."""
-        raise NotImplementedError("PeerDAS column sampling: ROADMAP Queue 1 item 5 (KZG)")
+        of per-blob sidecar arrival (see ``peerdas.PeerDasSampler``)."""
+        from .peerdas import PeerDasSampler
+
+        kwargs = {}
+        if custody_count is not None:
+            kwargs["custody_count"] = custody_count
+        if samples_per_slot is not None:
+            kwargs["samples_per_slot"] = samples_per_slot
+        self.cell_context = cell_ctx
+        self.peerdas = PeerDasSampler(self, cell_ctx, node_id, **kwargs)
+        self.da_checker.set_column_gate(self.peerdas.is_available)
+        return self.peerdas
 
     def put_data_column(self, sidecar) -> bytes:
         """Retain a VERIFIED column sidecar, keyed by block root. All
         mutation happens under the chain lock; the cache is LRU-bounded to
         the availability checker's pending window and entries at or below
-        the finalized horizon are dropped. The port has no column
-        verification yet."""
-        raise NotImplementedError("PeerDAS data columns: ROADMAP Queue 1 item 5 (KZG)")
+        the finalized horizon are dropped."""
+        root = sidecar.signed_block_header.message.tree_root()
+        with self.lock:
+            cache = self.data_column_cache
+            cols = cache.pop(root, None) or {}
+            cols[int(sidecar.index)] = sidecar
+            cache[root] = cols
+            fin_slot = self.spec.start_slot(
+                int(self.fork_choice.store.finalized_checkpoint[0])
+            )
+            for r in [
+                r for r, cs in cache.items()
+                if r != root and cs and all(
+                    int(s.signed_block_header.message.slot) <= fin_slot
+                    for s in cs.values()
+                )
+            ]:
+                del cache[r]
+            while len(cache) > self.da_checker.MAX_PENDING:
+                cache.pop(next(iter(cache)))
+        return root
 
     def data_columns_for(self, block_root: bytes) -> dict:
         """Snapshot of the held columns for one block (index -> sidecar)."""

@@ -69,3 +69,47 @@ def block_to_ssz(signed_block) -> bytes:
     """The port's signed block -> SSZ bytes, which the reference's block
     type of the same fork decodes."""
     return signed_block.serialize()
+
+
+def _g1_affine(p):
+    """A G1 affine point as (x, y) ints, or None for infinity. Takes the
+    reference's tuples or any two-int sequence (a numpy row included)."""
+    if p is None:
+        return None
+    return (int(p[0]), int(p[1]))
+
+
+def _g2_affine(p):
+    """A G2 affine point as the port's (Fq2, Fq2), or None for infinity.
+    Takes the reference's (Fq2, Fq2) (anything with ``c0``/``c1``) or four
+    ints x.c0, x.c1, y.c0, y.c1 (a numpy row included)."""
+    from .oracle.fields import Fq2
+
+    if p is None:
+        return None
+    if hasattr(p[0], "c0"):
+        return (Fq2(int(p[0].c0), int(p[0].c1)), Fq2(int(p[1].c0), int(p[1].c1)))
+    c = [int(v) for v in p]
+    return (Fq2(c[0], c[1]), Fq2(c[2], c[3]))
+
+
+def trusted_setup_from_ref(setup):
+    """The reference's ``TrustedSetup`` (its oracle's affine points; rows of
+    ints or numpy arrays also do) -> the port's ``kzg.TrustedSetup`` on the
+    same points, the Lagrange points kept in their bit-reversed order."""
+    from .kzg.setup import TrustedSetup
+
+    return TrustedSetup(
+        [_g1_affine(p) for p in setup.g1_lagrange_brp],
+        [_g1_affine(p) for p in setup.g1_monomial],
+        [_g2_affine(p) for p in setup.g2_monomial],
+    )
+
+
+def verify_tables_from_ref(tables, device=None):
+    """The reference's ``ops.kzg.verify.VerifyTables`` (uint64 limb arrays,
+    an int32 permutation) -> the port's ``VerifyTables`` of int64 tensors on
+    ``device`` (default CUDA)."""
+    from .ops.kzg.verify import VerifyTables
+
+    return VerifyTables(*(to_torch(np.asarray(a), device) for a in tables))

@@ -198,6 +198,18 @@ def from_affine(k: int, x, y, inf=None):
 # --------------------------------------------------------------------------------------
 
 
+def scale_bits(k: int, point, bits):
+    """[sum bits] * point per lane. bits: int64 [nbits, *batch] MSB-first (0
+    or 1); point [*batch, 3k, 25]. nbits steps of dbl + add + select (four
+    plan launches a step), the reference's scan unrolled on the host."""
+    acc = inf_like(k, point)
+    for i in range(bits.shape[0]):
+        acc = point_dbl(k, acc)
+        added = point_add(k, acc, point)
+        acc = point_select(bits[i] == 1, added, acc)
+    return acc
+
+
 def scale_u64(k: int, point, scalars, window: int = 4):
     """Per-point 64-bit scalar multiply (the RLC scaling path)."""
     return scale_u64_with_fixed(k, point, scalars, (), window)[0]

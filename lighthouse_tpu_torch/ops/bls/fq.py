@@ -283,6 +283,80 @@ def to_digits(x):
 
 
 # --------------------------------------------------------------------------------------
+# The bare convolution: the reference's ``_conv_product`` on its digit arm
+# (``_conv_product_digits``), for callers outside the fused kernel (the Fr
+# limb math of ``ops/kzg/frops``). Integer broadcast multiply-sums, exact in
+# int64: torch has no int64 matmul on CUDA.
+# --------------------------------------------------------------------------------------
+
+_CONV_DIGITS = 2 * _N_DIGITS - 1  # 101 digit positions
+
+
+def digit_outer(a, b):
+    """Limb rows a, b [..., 25] (broadcast) -> their digit outer products
+    [..., 51, 51]. A sum of these over any axis is again a valid input of
+    ``conv_from_outer`` (the convolution is linear)."""
+    return to_digits(a)[..., :, None] * to_digits(b)[..., None, :]
+
+
+def antidiagonal_sums(prod):
+    """Digit outer products [..., 51, 51] -> their anti-diagonal sums
+    [..., 101], the digit convolution (the shear: row i of the padded outer
+    product lands shifted by i)."""
+    batch = prod.shape[:-2]
+    prod = torch.cat(
+        [prod, prod.new_zeros(batch + (_N_DIGITS, _CONV_DIGITS + 1 - _N_DIGITS))], dim=-1
+    )
+    flat = prod.reshape(batch + (_N_DIGITS * (_CONV_DIGITS + 1),))
+    d = flat[..., : _N_DIGITS * _CONV_DIGITS].reshape(batch + (_N_DIGITS, _CONV_DIGITS))
+    return d.sum(dim=-2)
+
+
+def conv_from_outer(prod):
+    """Digit outer products [..., 51, 51] (or a sum of them) -> the 50
+    16-bit-radix accumulators of ``conv_product``: the anti-diagonal sums,
+    then limb s = D[2s] + 2^8 D[2s+1], with limb 50 (digit position 100)
+    folded into limb 49 as the reference does."""
+    d = antidiagonal_sums(prod)  # [..., 101] digit accumulators
+    batch = d.shape[:-1]
+    pairs = torch.cat([d, d.new_zeros(batch + (1,))], dim=-1).reshape(batch + (_N_DIGITS, 2))
+    limbs = pairs[..., 0] + (pairs[..., 1] << 8)  # [..., 51]
+    top = 2 * NLIMBS - 1
+    return torch.cat(
+        [limbs[..., :top], limbs[..., top : top + 1] + (limbs[..., top + 1 :] << LIMB_BITS)],
+        dim=-1,
+    )
+
+
+def conv_product(a, b):
+    """Convolution product of limb rows [..., 25] -> 50 int64 accumulators
+    (value-preserving; bounds from ``conv_limb_bounds``), equal limb for limb
+    to the reference's ``_conv_product_digits``."""
+    return conv_from_outer(digit_outer(a, b))
+
+
+def conv_limb_bounds(in_limb_a: int, in_limb_b: int | None = None) -> list[int]:
+    """Static per-accumulator bounds of ``conv_product`` for inputs with limbs
+    <= in_limb_a / in_limb_b (the reference's digit-arm formulas), each proved
+    below 2^63 through ``_cert``."""
+    if in_limb_b is None:
+        in_limb_b = in_limb_a
+    da, db = _digit_bound(in_limb_a), _digit_bound(in_limb_b)
+    # digit conv position d has min(d, 100 - d, 50) + 1 terms
+    per_digit = [
+        (min(d, _CONV_DIGITS - 1 - d, _N_DIGITS - 1) + 1) * da * db
+        for d in range(_CONV_DIGITS)
+    ] + [0]
+    _cert("conv_digit_i64_acc", max(per_digit), _CAP - 1,
+          note="digit conv accumulators exact in int64")
+    limb_b = [per_digit[2 * s] + (per_digit[2 * s + 1] << 8) for s in range(_N_DIGITS)]
+    limb_b[2 * NLIMBS - 1] += limb_b[2 * NLIMBS] << LIMB_BITS  # limb 50 folded into 49
+    _cert("conv_digit_limb_acc", max(limb_b), _CAP - 1,
+          note="recombined conv accumulators exact in int64")
+    return limb_b[: 2 * NLIMBS]
+
+
+# --------------------------------------------------------------------------------------
 # Congruence-fold reduction walk (reduce_limbs), statically scheduled
 # --------------------------------------------------------------------------------------
 

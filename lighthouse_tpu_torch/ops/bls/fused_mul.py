@@ -455,13 +455,8 @@ class Schedule:
 
 
 def _conv_digits(A, B):
-    """Digit planes [..., 51] x [..., 51] -> anti-diagonal sums [..., 101]
-    (the shear: row i of the padded outer product lands shifted by i)."""
-    prod = A[..., :, None] * B[..., None, :]  # [..., 51, 51]
-    batch = prod.shape[:-2]
-    prod = torch.cat([prod, prod.new_zeros(batch + (_D, _CONV_D + 1 - _D))], dim=-1)
-    flat = prod.reshape(batch + (_D * (_CONV_D + 1),))
-    return flat[..., : _D * _CONV_D].reshape(batch + (_D, _CONV_D)).sum(dim=-2)
+    """Digit planes [..., 51] x [..., 51] -> anti-diagonal sums [..., 101]."""
+    return fq.antidiagonal_sums(A[..., :, None] * B[..., None, :])
 
 
 def _replay_plain(t, ops, f8):

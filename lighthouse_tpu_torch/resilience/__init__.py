@@ -23,7 +23,9 @@ Canonical fault domains:
   the firehose);
 * ``epoch_supervisor()`` — the device epoch engine
   (``epoch_engine.engine.process_epoch_on_device``; stage ``epoch.sweep``),
-  whose fallback, the numpy epoch path, lives outside the ladder.
+  whose fallback, the numpy epoch path, lives outside the ladder;
+* ``kzg_supervisor()``   — batched KZG cell verification
+  (``kzg/engine.py``; stage ``kzg.cell_batch_verify``), failing closed.
 """
 
 from __future__ import annotations
@@ -71,6 +73,19 @@ EPOCH_DOMAIN = "epoch_device"
 def epoch_supervisor() -> BackendSupervisor:
     """The fault domain guarding the device epoch engine."""
     return get_supervisor(EPOCH_DOMAIN)
+
+
+KZG_DOMAIN = "kzg_device"
+
+
+def kzg_supervisor() -> BackendSupervisor:
+    """The fault domain guarding batched KZG cell verification
+    (``kzg/engine.py``; stage ``kzg.cell_batch_verify``). A column whose
+    proof batch cannot be verified on ANY rung is treated as unverified —
+    the availability checker never marks a block available off a faulted
+    ladder (fail closed). With the engine on a card the ladder has no host
+    rung: a card's fault is never handed to the CPU."""
+    return get_supervisor(KZG_DOMAIN)
 
 
 def health_snapshot() -> dict:

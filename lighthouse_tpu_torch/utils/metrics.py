@@ -310,3 +310,8 @@ EPOCH_MIRROR_BYTES = REGISTRY.gauge(
     "Device-resident bytes of the epoch-engine registry mirror columns, "
     "set at every (re)grow/full-gather (epoch_engine/mirror.py)",
 )
+KZG_TABLE_BYTES = REGISTRY.gauge(
+    "kzg_table_bytes",
+    "Device-resident bytes of the KZG cell-verification tables, set when "
+    "the CellEngine builds them (kzg/engine.py)",
+)

@@ -274,8 +274,9 @@ def test_empty_batch_is_false(registry):
 
 
 def test_port_imports_neither_jax_nor_reference(registry, batch):
-    """A fresh interpreter imports the port, verifies on the CPU, runs one
-    numpy epoch boundary, and has loaded no jax and nothing of
+    """A fresh interpreter imports the port (its KZG stack and PeerDAS
+    modules included), verifies on the CPU, runs one numpy epoch boundary,
+    loads the port's own trusted setup, and has loaded no jax and nothing of
     lighthouse_tpu."""
     raw, _, _ = registry
     ix, msg, sb = batch[1]
@@ -290,6 +291,8 @@ import lighthouse_tpu_torch.epoch_engine.engine, lighthouse_tpu_torch.convert
 import lighthouse_tpu_torch.fork_choice, lighthouse_tpu_torch.store, lighthouse_tpu_torch.op_pool
 import lighthouse_tpu_torch.firehose.attester_cache, lighthouse_tpu_torch.execution_layer
 import lighthouse_tpu_torch.utils.logging, lighthouse_tpu_torch.resilience.crashpoints
+import lighthouse_tpu_torch.kzg, lighthouse_tpu_torch.kzg.engine, lighthouse_tpu_torch.ops.kzg
+import lighthouse_tpu_torch.beacon_chain.data_columns, lighthouse_tpu_torch.beacon_chain.peerdas
 from lighthouse_tpu_torch import epoch_engine, state_transition
 from lighthouse_tpu_torch.beacon_chain import BeaconChain
 from lighthouse_tpu_torch.beacon_processor import BeaconProcessor
@@ -308,6 +311,8 @@ lighthouse_tpu_torch.bls.set_backend("oracle")
 chain = BeaconChain(spec, state)
 ok = ok and chain.head.slot == state.slot and len(chain.pubkey_cache) == 16
 BeaconProcessor(synchronous=True).shutdown()
+setup = lighthouse_tpu_torch.kzg.load_trusted_setup()
+ok = ok and setup.field_elements_per_blob == 4096 and len(setup.g2_monomial) == 65
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "lighthouse_tpu" or m.startswith("lighthouse_tpu.")]
 print(ok, bad)
