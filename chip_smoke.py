@@ -95,11 +95,41 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      verifies (5), the batch (3, its kernel rows timed at its own n_pad),
      the table builds, each proof MSM; one column verify, the batch and its
      Fr stage under the profiler.
-Phases 8-10 and 12-14 each set the counts to 0 before and read them after,
+ 15. a second node over the network on phase 13-14's chain: node A a
+     ``BeaconNodeService`` over that chain, node B booted from a copy of
+     phase 13's post-import-2 state (its own seeded pubkey cache and device
+     tensor, ``HotColdDB(MemoryStore)``, PeerDAS custody from its node id),
+     both on one ``LoopbackTransport``, B's slot clock at A's head. A builds
+     and imports NET_BLOCKS more blocks; B range-syncs them with phase 14's
+     blob block as one segment (one ``process_chain_segment`` bls batch on
+     the card; the blob block parks on availability, its custody and sample
+     columns are fetched by root from A and verified on the card): B's head
+     and stored blocks and post-states equal A's, no peer demoted. B
+     backfills below its anchor: a corrupt peer's segment (block 1 with
+     block 2's proposer signature) rejected and that peer demoted, A's
+     accepted, one indexed batch each. A publishes a blob block (pending on
+     B, no launch), a column with a swapped cell (dropped) and B's required
+     columns (the head moves with the last), 64 attestations of one head
+     committee with one poisoned (exactly it rejected, the reference
+     bisection's call count), 4 aggregates with one bad, 64 sync-committee
+     messages of subnet 0 with one poisoned and a contribution, through
+     ``Router`` and ``BeaconProcessor``; the processor's drops and expiries
+     printed. Then two gossipsub ``SocketTransport`` endpoints on 127.0.0.1
+     met through a ``BootNode`` carry 64 more attestations (the same
+     verdicts), a BlocksByRange of the segment and a
+     DataColumnSidecarsByRoot (decoded roots == the sent ones); a mainnet
+     block's and a column's encode and decode timed. Timed: the sync split
+     (download, the segment's bls halves, column fetch and verifies), the
+     backfill batches, gossip att/s beside phase 13's; the segment batch
+     under the profiler; host peak RSS and peak device bytes.
+Phases 8-10 and 12-15 each set the counts to 0 before and read them after,
 as phase 5 does, and hold any shape they launched that phase 4 did not see
-(phase 14's column and batch shapes must all be among phase 4's: its
-warm-up in phase 3 runs one column verify and a batch at each n_pad a
-slot's required cells can give, 64 and 128).
+(phase 14's column and batch shapes and phase 15's must all be among the
+shapes checked before them: phase 3's warm-up runs one column verify and a
+batch at each n_pad a slot's required cells can give, 64 and 128, a
+3-block segment's 6 single-key sets through the bls API, one indexed item
+(a backfilled block, a sync-committee message) and a contribution's three
+items).
 
 Full configuration: 2^20 validator pubkeys resident as the [N, 3, 25]
 cache (mainnet); main path batches of 64 aggregate signature sets, 512 keys
@@ -108,8 +138,10 @@ attestation aggregates and one sync aggregate of --keys = 512 keys); a gossip po
 of 64 committees x 32 attesters; the state transition over all 2^20
 validators (the parity boundary at 2^18), its block carrying 262,658 keys in
 11 sets; the chain over the same 2^20 registry; PeerDAS at mainnet geometry
-(nothing cut). The last line of stdout is the result object; the line before
-it the kernel table; before that the card's name and power limit.
+(nothing cut); the network over the same chain and a second 2^20-validator
+node (depth cut: NET_BLOCKS new blocks synced). The last line of stdout is
+the result object; the line before it the kernel table; before that the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -135,6 +167,8 @@ STATE_EPOCH = 101  # bench.py's epoch: no eth1, sync-committee or history bounda
 ATT_SLOTS = 8  # attestations in the state-transition block (one per slot, all committees)
 KZG_COLUMN_REPS = 5  # timed column verifies (phase 14)
 KZG_BATCH_REPS = 3  # timed batches of every required cell (phase 14)
+NET_BLOCKS = 2  # blocks node A builds for node B's range sync, after phase 14's blob block (phase 15)
+NET_CODEC_REPS = 5  # timed encodes and decodes of a block and a column (phase 15)
 # int32 multiply-add rate outside the tensor cores: an H100 SM has half as
 # many INT32 lanes as FP32 lanes, so half the 67 TFLOP/s fp32 peak
 H100_INT32_OPS_PER_S = 33.5e12
@@ -926,12 +960,9 @@ class _ImportSplit:
 
         self.chain, self.dev, self.t = chain, dev, {}
         self.batches, self.roots, self.epochs, self.in_pbp = [], [], [], False
-        self._undo = []
+        self._patches = _Patches()
+        patch = self._patches.set
         state_cls = type(chain.head.state)
-
-        def patch(obj, name, new):
-            self._undo.append((obj, name, obj.__dict__.get(name, _MISSING)))
-            setattr(obj, name, new)
 
         def span(key, fn):
             def run(*a, **k):
@@ -999,11 +1030,7 @@ class _ImportSplit:
         patch(chain, "recompute_head", span("head", chain.recompute_head))
 
     def restore(self) -> None:
-        for obj, name, old in reversed(self._undo):
-            if old is _MISSING:
-                delattr(obj, name)
-            else:
-                setattr(obj, name, old)
+        self._patches.undo()
 
     def split(self, total_ms: float) -> dict:
         t = self.t
@@ -1034,6 +1061,25 @@ class _ImportSplit:
 
 
 _MISSING = object()
+
+
+class _Patches:
+    """Attributes replaced for one measured run and put back after it."""
+
+    def __init__(self):
+        self._undo = []
+
+    def set(self, obj, name, new) -> None:
+        self._undo.append((obj, name, obj.__dict__.get(name, _MISSING)))
+        setattr(obj, name, new)
+
+    def undo(self) -> None:
+        for obj, name, old in reversed(self._undo):
+            if old is _MISSING:
+                delattr(obj, name)
+            else:
+                setattr(obj, name, old)
+        self._undo.clear()
 
 
 def _timed_import(chain, signed, dev) -> tuple:
@@ -1101,14 +1147,18 @@ def _sign_all(h, sks) -> list:
     return [oc.g2_compress(oc.g2_mul(h, sk % R)) for sk in sks]
 
 
-def _gossip_fixture(spec, chain, sk0: int, n_att: int, n_agg: int, bad_pos: int):
+def _gossip_fixture(spec, chain, sk0: int, n_att: int, n_agg: int, bad_pos: int,
+                    offset: int = 0, target_root: bytes | None = None):
     """Gossip for the head slot, signed by the oracle: ``n_att``
-    unaggregated electra attestations by the first members of committee 0
-    (the one at ``bad_pos`` signed by another member), and ``n_agg``
-    SignedAggregateAndProofs of the whole committee by aggregators whose
-    selection proofs select them, the last carrying another aggregator's
-    (valid, selecting) proof. Returns (attestations, aggregates, the
-    attesters' validator indices in order)."""
+    unaggregated electra attestations by the members of committee 0 from
+    position ``offset`` on (the one at ``bad_pos`` signed by another
+    member), and
+    ``n_agg`` SignedAggregateAndProofs of the whole committee by aggregators
+    whose selection proofs select them, the last carrying another
+    aggregator's (valid, selecting) proof. The target is the head (the
+    epoch's first block) unless ``target_root`` names the epoch's first
+    block. Returns (attestations, aggregates, the attesters' validator
+    indices in order)."""
     import hashlib
 
     import numpy as np
@@ -1125,18 +1175,18 @@ def _gossip_fixture(spec, chain, sk0: int, n_att: int, n_agg: int, bad_pos: int)
     committee = st.get_beacon_committee(spec, state, slot, 0)
     data = AttestationData(slot=slot, index=0, beacon_block_root=chain.head.root,
                            source=state.current_justified_checkpoint,
-                           target=Checkpoint(epoch=epoch, root=chain.head.root))
+                           target=Checkpoint(epoch=epoch, root=target_root or chain.head.root))
     h = cs.hash_to_g2(compute_signing_root(data, get_domain(spec, state, spec.DOMAIN_BEACON_ATTESTER,
                                                             epoch=epoch)))
     cbits = np.zeros(spec.preset.MAX_COMMITTEES_PER_SLOT, dtype=bool)
     cbits[0] = True
-    members = [int(v) for v in committee[:n_att]]
+    members = [int(v) for v in committee[offset:offset + n_att]]
     sigs = _sign_all(h, [sk0 + v for v in members])
     sigs[bad_pos] = sigs[(bad_pos + 1) % n_att]
     atts = []
     for j, sig in enumerate(sigs):
         bits = np.zeros(committee.size, dtype=bool)
-        bits[j] = True
+        bits[offset + j] = True
         atts.append(ns.AttestationElectra(aggregation_bits=bits, data=data, signature=sig,
                                           committee_bits=cbits.copy()))
     aggregate = ns.AttestationElectra(
@@ -1149,11 +1199,11 @@ def _gossip_fixture(spec, chain, sk0: int, n_att: int, n_agg: int, bad_pos: int)
     modulo = max(1, committee.size // spec.target_aggregators_per_committee)
     chosen = []
     for v in committee:
+        if len(chosen) == n_agg:
+            break
         proof = _sign_all(sel_h, [sk0 + int(v)])[0]
         if int.from_bytes(hashlib.sha256(proof).digest()[:8], "little") % modulo == 0:
             chosen.append((int(v), proof))
-            if len(chosen) == n_agg:
-                break
     if len(chosen) < n_agg:
         raise RuntimeError(f"only {len(chosen)} aggregators selected in the committee")
     env_domain = get_domain(spec, state, spec.DOMAIN_AGGREGATE_AND_PROOF, epoch=epoch)
@@ -1902,14 +1952,607 @@ def kzg_phase(spec, chain, kz, secret_key, dev, rng) -> dict:
 
 
 # --------------------------------------------------------------------------------------
+# The network (phase 15)
+# --------------------------------------------------------------------------------------
+
+
+class _Held:
+    """A synchronous ``BeaconProcessor`` held: gossip queues (no worker
+    drains it) until ``release`` drains it inline in one pass, so a burst
+    forms batches as the worker pool would form them."""
+
+    def __init__(self, proc):
+        self.proc = proc
+        proc.synchronous = False
+
+    def release(self) -> int:
+        self.proc.synchronous = True
+        return self.proc.run_until_idle()
+
+
+class _CorruptPeer:
+    """A peer at node B's anchor: blocks by root served honestly from node
+    A, blocks by range from node A with one block's proposer signature
+    swapped for another block's (a valid point over another message)."""
+
+    def __init__(self, node, status, victim: bytes, donor):
+        self.node, self.status, self.victim, self.donor = node, status, victim, donor
+
+    def on_rpc(self, method, payload, from_peer):
+        if method == "status":
+            return self.status
+        if method == "blocks_by_root":
+            return self.node.blocks_by_root(payload)
+        if method == "blocks_by_range":
+            out = []
+            for b in self.node.blocks_by_range(*payload):
+                if b.message.tree_root() == self.victim:
+                    b = b.copy()
+                    b.signature = bytes(self.donor.signature)
+                out.append(b)
+            return out
+        raise ValueError(method)
+
+    def on_gossip(self, *a):
+        pass
+
+
+def _sync_fixture(spec, chain, sk0: int, n_msg: int, bad_pos: int):
+    """SyncCommitteeMessages for the head by the members at positions
+    0 .. n_msg - 1 of the current sync committee (sync subnet 0), the one at
+    ``bad_pos`` carrying the next member's signature, and one
+    SignedContributionAndProof of subnet 0 by the first member over the same
+    positions, all signed by the oracle. Returns (messages, contribution)."""
+    import numpy as np
+
+    from lighthouse_tpu_torch.oracle import ciphersuite as cs
+    from lighthouse_tpu_torch.types.containers import for_preset
+    from lighthouse_tpu_torch.types.helpers import (
+        compute_signing_root,
+        get_domain,
+        sync_committee_signing_root,
+    )
+
+    ns = for_preset(spec.preset.name)
+    state, root = chain.head.state, chain.head.root
+    slot = int(state.slot)
+    epoch = slot // spec.preset.SLOTS_PER_EPOCH
+    members = [chain.pubkey_cache.get_index(bytes(pk))
+               for pk in state.current_sync_committee.pubkeys[:n_msg]]
+    h = cs.hash_to_g2(sync_committee_signing_root(spec, state, slot, root))
+    sigs = _sign_all(h, [sk0 + v for v in members])
+    sigs[bad_pos] = sigs[(bad_pos + 1) % n_msg]
+    msgs = [ns.SyncCommitteeMessage(slot=slot, beacon_block_root=root, validator_index=v,
+                                    signature=sig) for v, sig in zip(members, sigs)]
+    bits = np.zeros(spec.preset.SYNC_COMMITTEE_SIZE // 4, dtype=bool)
+    bits[:n_msg] = True
+    contribution = ns.SyncCommitteeContribution(
+        slot=slot, beacon_block_root=root, subcommittee_index=0, aggregation_bits=bits,
+        signature=_sign_all(h, [n_msg * sk0 + sum(members)])[0])
+    aggor = members[0]
+    sel = compute_signing_root(
+        ns.SyncAggregatorSelectionData(slot=slot, subcommittee_index=0),
+        get_domain(spec, state, spec.DOMAIN_SYNC_COMMITTEE_SELECTION_PROOF, epoch=epoch))
+    cp = ns.ContributionAndProof(aggregator_index=aggor, contribution=contribution,
+                                 selection_proof=_sign_all(cs.hash_to_g2(sel), [sk0 + aggor])[0])
+    env = compute_signing_root(cp, get_domain(spec, state, spec.DOMAIN_CONTRIBUTION_AND_PROOF,
+                                              epoch=epoch))
+    return msgs, ns.SignedContributionAndProof(
+        message=cp, signature=_sign_all(cs.hash_to_g2(env), [sk0 + aggor])[0])
+
+
+def _wait_for(cond, timeout: float, what: str) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"network: timed out after {timeout} s waiting for {what}")
+        time.sleep(0.01)
+
+
+def _ensure_proofs(kz, columns, dev) -> None:
+    """The cell proofs of ``columns`` not built yet (one device MSM each)."""
+    missing = sorted({c for c in columns if (0, c) not in kz["proofs"]})
+    if missing:
+        kz["proofs"].update(_cell_proofs(kz["ctx"], kz["rows"], missing, dev, kz["proof_ms"]))
+
+
+def _verdicts(results, items) -> list:
+    """Positions in ``items`` of the results that are errors (by root: over
+    sockets the results hold decoded copies)."""
+    roots = [x.tree_root() for x in items]
+    return sorted(roots.index(x.tree_root()) for x, v in results if isinstance(v, Exception))
+
+
+def network_phase(spec, chain, kz, raw, sk0: int, dev, rng, seed: int) -> dict:
+    """Phase 15: a second node over the network, on phase 13-14's chain.
+    Node A serves that chain; node B boots from a copy of phase 13's
+    post-import-2 state (its own seeded pubkey cache, store, PeerDAS custody)
+    on one ``LoopbackTransport``; B range-syncs phase 14's blob block and the
+    blocks built here (one segment batch, the blob block's columns fetched by
+    root and verified), backfills below its anchor (a corrupt peer's segment
+    rejected first), takes gossip through ``Router`` and ``BeaconProcessor``
+    (a blob block and its columns, attestations, aggregates, sync-committee
+    messages and a contribution); then two gossipsub ``SocketTransport``
+    endpoints met through a ``BootNode`` carry attestations, a
+    BlocksByRange and a DataColumnSidecarsByRoot. Counts are set to 0
+    before each run and read after it (``runs``)."""
+    import hashlib
+    import random
+    import resource
+
+    import torch
+
+    from lighthouse_tpu_torch import bls
+    from lighthouse_tpu_torch import state_transition as st
+    from lighthouse_tpu_torch.beacon_chain import BeaconChain, BlockError, ValidatorPubkeyCache
+    from lighthouse_tpu_torch.beacon_chain import data_columns as dcm
+    from lighthouse_tpu_torch.beacon_chain.chain import BlockPendingAvailability
+    from lighthouse_tpu_torch.beacon_processor import WorkType
+    from lighthouse_tpu_torch.kzg import engine as kzg_engine
+    from lighthouse_tpu_torch.network import (
+        BeaconNodeService,
+        BootNode,
+        GossipsubTransport,
+        LoopbackTransport,
+        MessageCodec,
+        Topic,
+    )
+    from lighthouse_tpu_torch.ops.bls import fused_mul as fm
+    from lighthouse_tpu_torch.store import HotColdDB
+    from lighthouse_tpu_torch.types.containers import for_preset
+    from lighthouse_tpu_torch.utils.slot_clock import ManualSlotClock
+
+    ns, ctx = for_preset(spec.preset.name), kz["ctx"]
+    out, runs, patches = {"validators": len(chain.head.state.validators)}, {}, _Patches()
+    kzg_engine.set_kzg_backend("device", device=dev)
+    bls.set_backend("device", device=dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+    def secret_key(i):
+        return sk0 + i
+
+    # 1. node A on the chain; the blocks it adds; node B from a checkpoint
+    bus = LoopbackTransport()
+    a = BeaconNodeService("A", spec, None, bus, chain=chain, device=dev)
+    blob_block = chain.get_signed_block(chain.head.root)
+    root2 = bytes(blob_block.message.parent_root)
+    block2 = chain.get_signed_block(root2)
+    root1 = bytes(block2.message.parent_root)
+    block1 = chain.get_signed_block(root1)
+    t = time.time()
+    anchor_b = chain.state_by_root(root2).copy()
+    out["anchor_copy_s"] = time.time() - t
+    segment = [blob_block]
+    fm.reset_counts()
+    t = time.time()
+    for _ in range(NET_BLOCKS):
+        blk = _blob_block(spec, chain, secret_key, rng, [])
+        chain.slot_clock.set_slot(int(blk.message.slot))
+        if chain.process_block(blk) != blk.message.tree_root() or chain.head.root != blk.message.tree_root():
+            raise RuntimeError("network: node A did not import its own block")
+        segment.append(blk)
+    runs["net_build"] = _read_counts("network: node A's new blocks")
+    out["build_s"] = time.time() - t
+    t = time.time()
+    cache_b = ValidatorPubkeyCache.from_affine(anchor_b, raw, device=dev)
+    chain_b = BeaconChain(spec, anchor_b, store=HotColdDB(),
+                          slot_clock=ManualSlotClock(int(chain.head.slot)), pubkey_cache=cache_b)
+    cache_b.device_array()
+    _sync(dev)
+    b = BeaconNodeService("B", spec, None, bus, chain=chain_b, device=dev)
+    sampler_b = chain_b.enable_peerdas(ctx, hashlib.sha256(b"chip_smoke node B").digest())
+    out["boot_b_s"] = time.time() - t
+    del anchor_b
+    if chain_b.genesis_block_root != root2:
+        raise RuntimeError("network: node B's anchor root != block 2's root")
+    blob_root = blob_block.message.tree_root()
+    need_b = sampler_b.required_columns(blob_root)
+    held_a = chain.data_columns_for(blob_root)
+    extra = [c for c in need_b if c not in held_a]
+    t = time.time()
+    _ensure_proofs(kz, extra, dev)
+    for sc in _column_sidecars(ns, blob_block, kz["rows"], kz["proofs"], extra).values():
+        chain.put_data_column(sc)
+    out["serve_columns_s"] = time.time() - t
+    log(f"network: node A on the {out['validators']}-validator chain built and imported "
+        f"{NET_BLOCKS} blocks in {out['build_s']:.1f} s; node B booted from a copy of the "
+        f"post-import-2 state (copy {out['anchor_copy_s']:.1f} s; seeded pubkey cache, its own "
+        f"2^{int(out['validators']).bit_length() - 1}-key device tensor, store and custody "
+        f"{sampler_b.custody}) in {out['boot_b_s']:.1f} s; node A holds B's {len(need_b)} required "
+        f"columns of the blob block ({len(extra)} built for it in {out['serve_columns_s']:.1f} s)")
+
+    # 2. range sync with column coupling (the corrupt peer known, at B's anchor)
+    corrupt = _CorruptPeer(a, b.local_status(), root1, block2)
+    bus.register("C", corrupt)
+    b.sync.backfill_enabled = False
+    b.sync.on_peer_status("C", corrupt.status)
+    reqs, col_ms, seg_calls, bls_calls = [], [], [], []
+    real_request, real_verify = bus.request, dcm.verify_data_column_sidecar
+    real_bls = bls.verify_signature_sets
+    real_segment = chain_b.process_chain_segment
+
+    def request(frm, to, method, payload):
+        t0 = time.perf_counter()
+        res = real_request(frm, to, method, payload)
+        reqs.append({"method": method, "ms": (time.perf_counter() - t0) * 1e3,
+                     "items": len(res) if isinstance(res, list) else None})
+        return res
+
+    def verify_column(ns_, sc, ctx_):
+        t0 = time.perf_counter()
+        try:
+            return real_verify(ns_, sc, ctx_)
+        finally:
+            _sync(dev)
+            col_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def verify_sets(sets, *, device=None):
+        sets = list(sets)
+        t0 = time.perf_counter()
+        prepared = bls.prepare_sets(sets, dev)
+        _sync(dev)
+        t1 = time.perf_counter()
+        ok = bls.verify_prepared_sets(prepared)
+        _sync(dev)
+        bls_calls.append({"sets": sets, "host_half_ms": (t1 - t0) * 1e3,
+                          "device_half_ms": (time.perf_counter() - t1) * 1e3, "ok": ok})
+        return ok
+
+    def process_segment(blocks, *a_, **k_):
+        t0 = time.perf_counter()
+        try:
+            res = real_segment(blocks, *a_, **k_)
+        except BlockPendingAvailability:
+            seg_calls.append(("pending", (time.perf_counter() - t0) * 1e3))
+            raise
+        seg_calls.append(("imported", (time.perf_counter() - t0) * 1e3))
+        return res
+
+    patches.set(bus, "request", request)
+    patches.set(dcm, "verify_data_column_sidecar", verify_column)
+    patches.set(bls, "verify_signature_sets", verify_sets)
+    patches.set(chain_b, "process_chain_segment", process_segment)
+    fm.reset_counts()
+    t = time.perf_counter()
+    try:
+        b.connect("A")
+        _sync(dev)
+    finally:
+        patches.undo()
+    sync_ms = (time.perf_counter() - t) * 1e3
+    runs["net_segment"] = _read_counts("network: range sync")
+    if chain_b.head.root != chain.head.root or int(chain_b.head.slot) != int(chain.head.slot):
+        raise RuntimeError("network: node B's head != node A's after range sync")
+    for blk in segment:
+        sr, r = bytes(blk.message.state_root), blk.message.tree_root()
+        if chain_b.store.get_state(sr) is None or chain_b.get_signed_block(r) is None:
+            raise RuntimeError(f"network: node B lacks block {int(blk.message.slot)} or its post-state")
+    t = time.time()
+    if chain_b.head.state.tree_root() != bytes(segment[-1].message.state_root):
+        raise RuntimeError("network: node B's head post-state root != node A's block state_root")
+    head_root_s = time.time() - t
+    if b.sync.peer_failures:
+        raise RuntimeError(f"network: range sync demoted {b.sync.peer_failures}")
+    if [c for c, _ in seg_calls] != ["pending", "imported"]:
+        raise RuntimeError(f"network: segment imports {seg_calls}")
+    if len(bls_calls) != 1 or bls_calls[0]["ok"] is not True or len(bls_calls[0]["sets"]) != 2 * len(segment):
+        raise RuntimeError(f"network: the segment's bls batches {[(len(c['sets']), c['ok']) for c in bls_calls]}")
+    fetched = [r for r in reqs if r["method"] == "data_column_sidecars_by_root"]
+    if len(fetched) != 1 or sorted(chain_b.data_columns_for(blob_root)) != sorted(need_b):
+        raise RuntimeError(f"network: column fetch {fetched}, held {sorted(chain_b.data_columns_for(blob_root))}")
+    if not sampler_b.is_available(blob_root) or len(col_ms) != len(need_b):
+        raise RuntimeError("network: the blob block's columns were not all verified")
+    download = [r for r in reqs if r["method"] == "blocks_by_range"]
+    seg_sets = bls_calls[0]["sets"]
+    out["range_sync"] = {
+        "blocks": len(segment), "sets": len(seg_sets), "total_ms": sync_ms,
+        "download_ms": [r["ms"] for r in download], "segment_calls": seg_calls,
+        "segment_bls_host_half_ms": bls_calls[0]["host_half_ms"],
+        "segment_bls_device_half_ms": bls_calls[0]["device_half_ms"],
+        "column_fetch_ms": fetched[0]["ms"], "columns": len(need_b),
+        "column_verify_ms": _spread(col_ms), "head_root_check_s": head_root_s,
+    }
+    log(f"network range sync: node B took {len(segment)} blocks (slots "
+        f"{int(segment[0].message.slot)}-{int(segment[-1].message.slot)}) from node A in "
+        f"{sync_ms:.1f} ms: download {json.dumps([round(x, 2) for x in out['range_sync']['download_ms']])} "
+        f"ms; process_chain_segment parked on availability ({seg_calls[0][1]:.1f} ms), then "
+        f"imported ({seg_calls[1][1]:.1f} ms) with one bls batch of {len(seg_sets)} sets (host half "
+        f"{bls_calls[0]['host_half_ms']:.2f} ms, device half {bls_calls[0]['device_half_ms']:.2f} ms); "
+        f"{len(need_b)} columns fetched by root in {fetched[0]['ms']:.2f} ms, verified on the card "
+        f"{json.dumps(out['range_sync']['column_verify_ms'])} ms; heads, stored blocks and "
+        f"post-states equal node A's (fresh head state root {head_root_s:.1f} s); no peer demoted; "
+        f"launches {json.dumps(runs['net_segment']['by'])}")
+
+    # 3. backfill below the anchor: the corrupt peer's segment first, then node A's
+    hist, vcalls = [], []
+    real_hist, real_batch = chain_b.import_historical_blocks, chain_b._batch_verify_items
+
+    def import_hist(blocks):
+        t0 = time.perf_counter()
+        try:
+            n = real_hist(blocks)
+        except BlockError as e:
+            hist.append(("rejected", str(e), (time.perf_counter() - t0) * 1e3))
+            raise
+        _sync(dev)
+        hist.append(("accepted", n, (time.perf_counter() - t0) * 1e3))
+        return n
+
+    def counting(items):
+        vcalls.append(list(items))
+        return real_batch(items)
+
+    patches.set(chain_b, "import_historical_blocks", import_hist)
+    patches.set(chain_b, "_batch_verify_items", counting)
+    b.sync.backfill_enabled = True
+    fm.reset_counts()
+    t = time.perf_counter()
+    try:
+        b.sync.maybe_sync()
+        _sync(dev)
+    finally:
+        patches.undo()
+    backfill_ms = (time.perf_counter() - t) * 1e3
+    runs["net_historical"] = _read_counts("network: backfill")
+    if [h[0] for h in hist] != ["rejected", "accepted"] or "signatures" not in hist[0][1] or hist[1][1] != 1:
+        raise RuntimeError(f"network: backfill imports {hist}")
+    if b.sync.peer_failures != {"C": 1}:
+        raise RuntimeError(f"network: backfill demotions {b.sync.peer_failures}")
+    if (chain_b.oldest_block_slot != int(block1.message.slot) or chain_b.get_signed_block(root1) is None
+            or chain_b.get_signed_block(root2) is None):
+        raise RuntimeError("network: node B did not backfill blocks 1 and 2")
+    if len(vcalls) != 2 or [len(c) for c in vcalls] != [1, 1]:
+        raise RuntimeError(f"network: backfill verify calls {[len(c) for c in vcalls]}")
+    out["backfill"] = {"total_ms": backfill_ms, "rejected_ms": hist[0][2], "accepted_ms": hist[1][2],
+                       "oldest_slot": chain_b.oldest_block_slot}
+    log(f"network backfill: the anchor block by root, then below it the corrupt peer's segment "
+        f"(block 1 with block 2's proposer signature) rejected in {hist[0][2]:.2f} ms and its peer "
+        f"demoted; node A's segment accepted in {hist[1][2]:.2f} ms (one indexed batch on the "
+        f"card each); oldest slot {chain_b.oldest_block_slot}; {backfill_ms:.1f} ms in all; "
+        f"launches {json.dumps(runs['net_historical']['by'])}")
+
+    # 4. gossip through Router -> BeaconProcessor -> chain on node B
+    gblock = _blob_block(spec, chain, secret_key, rng, kz["commitments"])
+    groot, gslot = gblock.message.tree_root(), int(gblock.message.slot)
+    for c in (chain, chain_b):
+        c.slot_clock.set_slot(gslot)
+    need_g = sampler_b.required_columns(groot)
+    t = time.time()
+    _ensure_proofs(kz, need_g, dev)
+    gsidecars = _column_sidecars(ns, gblock, kz["rows"], kz["proofs"], need_g)
+    out["gossip_columns_build_s"] = time.time() - t
+    head0 = chain_b.head.root
+    fm.reset_counts()
+    a.publish_block(gblock)
+    runs["net_gossip_block"] = _read_counts("network: gossip blob block", need=())
+    if fm.launches or chain_b.head.root != head0:
+        raise RuntimeError("network: the pending gossip block launched a kernel or moved the head")
+    bad = ns.DataColumnSidecar.decode(ns.DataColumnSidecar.encode(gsidecars[need_g[0]]))
+    bad.column[0] = bytes(gsidecars[need_g[0]].column[1])
+    fm.reset_counts()
+    a.publish_data_column(bad)
+    if sampler_b.verified_columns(groot) or chain_b.data_columns_for(groot):
+        raise RuntimeError("network: the column with a swapped cell was kept")
+    gcol_ms = []
+    for i, c in enumerate(need_g):
+        t0 = time.perf_counter()
+        a.publish_data_column(gsidecars[c])
+        _sync(dev)
+        gcol_ms.append((time.perf_counter() - t0) * 1e3)
+        if (chain_b.head.root == groot) != (i == len(need_g) - 1):
+            raise RuntimeError(f"network: head after {i + 1} of {len(need_g)} gossip columns")
+    runs["net_columns"] = _read_counts("network: gossip columns")
+    if chain_b.store.get_state(bytes(gblock.message.state_root)) is None:
+        raise RuntimeError("network: the gossip block's post-state is not stored")
+    out["gossip_block"] = {"columns": len(need_g), "column_ms": gcol_ms}
+    log(f"network gossip: blob block at slot {gslot} pending on node B with no launch; a column "
+        f"with a swapped cell dropped; {len(need_g)} required columns over {Topic.DATA_COLUMN_SIDECAR}, "
+        f"the head moved with the last ({json.dumps([round(x, 1) for x in gcol_ms])} ms each, the "
+        f"last one with the import); launches {json.dumps(runs['net_columns']['by'])}")
+
+    state_b = chain_b.head.state
+    target = st.get_block_root(spec, state_b, st.get_current_epoch(spec, state_b))
+    n_att, bad_pos, bad_sync = 64, 23, 41
+    t = time.time()
+    atts, aggs, members = _gossip_fixture(spec, chain_b, sk0, n_att, 4, bad_pos, target_root=target)
+    msgs, contribution = _sync_fixture(spec, chain_b, sk0, 64, bad_sync)
+    out["gossip_fixture_s"] = time.time() - t
+    results, agg_results, sync_results, contrib_results, vcalls = [], [], [], [], []
+
+    def recording(name, sink):
+        real = getattr(chain_b, name)
+
+        def run(xs):
+            res = real(xs)
+            sink.extend(res)
+            return res
+        patches.set(chain_b, name, run)
+
+    recording("verify_unaggregated_attestations", results)
+    recording("verify_aggregated_attestations", agg_results)
+    recording("verify_sync_committee_messages", sync_results)
+    recording("verify_sync_contributions", contrib_results)
+    patches.set(chain_b, "_batch_verify_items", counting)
+    gossip = {}
+    try:
+        # attestations and aggregates batch in the processor (held, then
+        # drained as a worker would); sync-committee messages are not
+        # batchable there, so each runs as it arrives
+        for name, publish, items in (("attestations", a.publish_attestation, atts),
+                                     ("aggregates", a.publish_aggregate, aggs),
+                                     ("sync_messages", a.publish_sync_message, msgs)):
+            vcalls.clear()
+            held = _Held(b.processor) if name != "sync_messages" else None
+            fm.reset_counts()
+            t0 = time.perf_counter()
+            for x in items:
+                publish(x)
+            if held is not None:
+                held.release()
+            _sync(dev)
+            gossip[name] = {"ms": (time.perf_counter() - t0) * 1e3, "verify_calls": len(vcalls),
+                            "sizes": sorted({len(c) for c in vcalls})}
+            if name == "sync_messages":
+                a.publish_contribution(contribution)
+                _sync(dev)
+            runs[{"attestations": "net_gossip", "aggregates": "net_aggregates",
+                  "sync_messages": "net_sync"}[name]] = _read_counts(f"network: gossip {name}")
+            if name == "attestations":
+                pos = {v: j for j, v in enumerate(members)}
+                order = [pos[it[0][0]] for it in vcalls[0]]
+                gossip[name]["reference_calls"] = 1 + _bisect_calls(order, {bad_pos})
+    finally:
+        patches.undo()
+    if _verdicts(results, atts) != [bad_pos] or len(results) != n_att:
+        raise RuntimeError(f"network gossip: attestations rejected {_verdicts(results, atts)}")
+    if gossip["attestations"]["verify_calls"] != gossip["attestations"]["reference_calls"]:
+        raise RuntimeError(f"network gossip: {gossip['attestations']} verify calls, not the "
+                           f"reference bisection's")
+    if _verdicts(agg_results, aggs) != [len(aggs) - 1] or len(agg_results) != len(aggs):
+        raise RuntimeError(f"network gossip: aggregates rejected {_verdicts(agg_results, aggs)}")
+    if _verdicts(sync_results, msgs) != [bad_sync] or len(sync_results) != len(msgs):
+        raise RuntimeError(f"network gossip: sync messages rejected {_verdicts(sync_results, msgs)}")
+    if gossip["sync_messages"]["verify_calls"] != len(msgs) + 1:
+        raise RuntimeError(f"network gossip: {gossip['sync_messages']['verify_calls']} sync verify "
+                           f"calls; one per message and the poisoned one's fallback make "
+                           f"{len(msgs) + 1}")
+    if len(contrib_results) != 1 or contrib_results[0][1] is not True:
+        raise RuntimeError(f"network gossip: contribution verdict {contrib_results}")
+    proc = b.processor
+    drops = {"dropped": {t.name: n for t, n in proc.dropped.items() if n},
+             "expired": {t.name: n for t, n in proc.expired.items() if n}}
+    gossip["attestations"]["verified_att_per_s"] = (n_att - 1) / (gossip["attestations"]["ms"] / 1e3)
+    out["gossip"] = {**gossip, "fixture_s": out["gossip_fixture_s"], "processor": drops}
+    log(f"network gossip: {n_att} attestations of one head committee published by node A, one "
+        f"BeaconProcessor batch on node B: exactly the poisoned one ({bad_pos}) rejected, "
+        f"{gossip['attestations']['verify_calls']} verify calls (reference bisection "
+        f"{gossip['attestations']['reference_calls']}), {gossip['attestations']['ms']:.1f} ms, "
+        f"{gossip['attestations']['verified_att_per_s']:.2f} att/s; {len(aggs)} aggregates, the "
+        f"bad one rejected ({gossip['aggregates']['ms']:.1f} ms); {len(msgs)} sync-committee "
+        f"messages of subnet 0, exactly the poisoned one ({bad_sync}) rejected, "
+        f"{gossip['sync_messages']['verify_calls']} verify calls (one per message, the poisoned one "
+        f"again alone), {gossip['sync_messages']['ms']:.1f} ms; the contribution verified; processor "
+        f"drops {json.dumps(drops)}")
+    if drops["expired"]:
+        log(f"network gossip finding: work expired before dispatch {json.dumps(drops['expired'])}")
+
+    # 5. sockets: two gossipsub endpoints met through a boot node
+    boot = BootNode().start()
+    ta = GossipsubTransport(spec, rng=random.Random(seed))
+    tb = GossipsubTransport(spec, rng=random.Random(seed + 1))
+    sa = BeaconNodeService(ta.local_addr, spec, None, ta, chain=chain, device=dev)
+    sb = BeaconNodeService(tb.local_addr, spec, None, tb, chain=chain_b, device=dev)
+    try:
+        ta.discover(boot.local_addr)
+        found = tb.discover(boot.local_addr)
+        if found != [ta.local_addr]:
+            raise RuntimeError(f"network sockets: the boot node returned {found}")
+        _wait_for(lambda: ta.local_addr in tb.peers() and tb.local_addr in ta.peers(), 10.0, "peers")
+        _wait_for(lambda: ta._topic_peers(Topic.BEACON_ATTESTATION), 10.0, "subscriptions")
+        # the next 64 members of the same committee: the wire carries the
+        # pre-electra Attestation container (the codec's, as the reference's),
+        # so committee 0 is the one its data.index names
+        satts, _, smembers = _gossip_fixture(spec, chain_b, sk0, n_att, 0, bad_pos, offset=n_att,
+                                             target_root=target)
+        sresults, vcalls = [], []
+        recording("verify_unaggregated_attestations", sresults)
+        patches.set(chain_b, "_batch_verify_items", counting)
+        try:
+            held = _Held(sb.processor)
+            fm.reset_counts()
+            t0 = time.perf_counter()
+            for x in satts:
+                sa.publish_attestation(x)
+            _wait_for(lambda: sb.processor.queue_len(WorkType.GossipAttestation) == n_att, 60.0,
+                      "the socket gossip")
+            t1 = time.perf_counter()
+            held.release()
+            _sync(dev)
+            sock_ms = (time.perf_counter() - t0) * 1e3
+            wire_ms = (t1 - t0) * 1e3
+            runs["net_socket"] = _read_counts("network: socket gossip")
+        finally:
+            patches.undo()
+        wire = [ns.Attestation.decode(ns.Attestation.encode(x)) for x in satts]
+        if _verdicts(sresults, wire) != [bad_pos] or len(sresults) != n_att:
+            raise RuntimeError(f"network sockets: attestations rejected {_verdicts(sresults, wire)}")
+        pos = {v: j for j, v in enumerate(smembers)}
+        sref = 1 + _bisect_calls([pos[it[0][0]] for it in vcalls[0]], {bad_pos})
+        if len(vcalls) != sref:
+            raise RuntimeError(f"network sockets: {len(vcalls)} verify calls, the reference makes {sref}")
+        t0 = time.perf_counter()
+        got = tb.request(sb.node_id, ta.local_addr, "blocks_by_range",
+                         (int(segment[0].message.slot), len(segment)))
+        bbr_ms = (time.perf_counter() - t0) * 1e3
+        if [x.message.tree_root() for x in got] != [x.message.tree_root() for x in segment]:
+            raise RuntimeError("network sockets: BlocksByRange roots != the segment's")
+        ids = [(blob_root, c) for c in need_b]
+        t0 = time.perf_counter()
+        cols = tb.request(sb.node_id, ta.local_addr, "data_column_sidecars_by_root", ids)
+        dcr_ms = (time.perf_counter() - t0) * 1e3
+        want = chain.data_columns_for(blob_root)
+        if [x.tree_root() for x in cols] != [want[c].tree_root() for c in need_b]:
+            raise RuntimeError("network sockets: DataColumnSidecarsByRoot roots != node A's columns")
+    finally:
+        sb.stop()
+        sa.stop()
+        boot.stop()
+    codec = MessageCodec(spec)
+    enc = {}
+    for label, topic, obj in (("block", Topic.BEACON_BLOCK, block1),
+                              ("column", Topic.DATA_COLUMN_SIDECAR, gsidecars[need_g[0]])):
+        e_ms, d_ms = [], []
+        for _ in range(NET_CODEC_REPS):
+            t0 = time.perf_counter()
+            data = codec.encode_gossip(topic, obj)
+            t1 = time.perf_counter()
+            back = codec.decode_gossip(topic, data)
+            d_ms.append((time.perf_counter() - t1) * 1e3)
+            e_ms.append((t1 - t0) * 1e3)
+        if back.tree_root() != obj.tree_root():
+            raise RuntimeError(f"network codec: the decoded {label} != the encoded one")
+        enc[label] = {"bytes": len(data), "encode_ms": _spread(e_ms), "decode_ms": _spread(d_ms)}
+    out["sockets"] = {"attestations_ms": sock_ms, "wire_ms": wire_ms, "verify_calls": len(vcalls),
+                      "reference_calls": sref,
+                      "verified_att_per_s": (n_att - 1) / (sock_ms / 1e3),
+                      "blocks_by_range_ms": bbr_ms, "columns_by_root_ms": dcr_ms, "codec": enc}
+    log(f"network sockets: two gossipsub SocketTransports on 127.0.0.1 met through a BootNode; "
+        f"{n_att} more attestations of the committee (members {n_att}-{2 * n_att - 1}) over the mesh as "
+        f"the wire's pre-electra container: exactly the poisoned one rejected, "
+        f"{len(vcalls)} verify calls (reference {sref}), {sock_ms:.1f} ms "
+        f"({out['sockets']['verified_att_per_s']:.2f} att/s; published to all queued on node B "
+        f"{wire_ms:.1f} ms, the batch after it {sock_ms - wire_ms:.1f} ms); BlocksByRange of the "
+        f"{len(segment)}-block segment {bbr_ms:.1f} ms and DataColumnSidecarsByRoot of "
+        f"{len(need_b)} columns {dcr_ms:.1f} ms, decoded roots == the sent ones; codec "
+        f"{json.dumps(enc)}")
+
+    # 6. the segment batch under the profiler; memory
+    ok, wall, dev_us, ops = _profiled(lambda: bls.verify_signature_sets(seg_sets, device=dev))
+    if ok is not True:
+        raise RuntimeError("network: the profiled segment batch did not verify")
+    busy = sum(dev_us.values()) / 1e3
+    out["segment_profile"] = {"wall_ms": wall, "busy_ms": busy, "aten_ops": ops,
+                              "idle_share": 1 - busy / wall if busy else None}
+    out["peak_rss_bytes"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    out["peak_device_bytes"] = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+    log(f"network profiled segment batch ({len(seg_sets)} sets): {wall:.2f} ms wall, device busy "
+        f"{busy:.3f} ms, {ops} aten ops, idle share {out['segment_profile']['idle_share']}; host peak "
+        f"RSS {out['peak_rss_bytes']} bytes (two chains), peak device bytes {out['peak_device_bytes']}")
+    out["runs"] = runs
+    return out
+
+
+# --------------------------------------------------------------------------------------
 # Kernel checks
 # --------------------------------------------------------------------------------------
 
 
 SRC = "lighthouse_tpu_torch/csrc/fused_mul.cu"
-# phase 13's paths and the earlier path of the same shapes whose timed rows they share
+# phase 13's and 15's paths and the earlier path of the same shapes whose timed rows they share
 CHAIN_TWINS = {"chain_import": "state_block", "chain_import2": "state_block",
-               "chain_gossip": "gossip", "chain_firehose": "gossip"}
+               "chain_gossip": "gossip", "chain_firehose": "gossip",
+               "net_gossip": "gossip", "net_socket": "gossip"}
 REPLACES = {
     "K1": "lighthouse_tpu/ops/bls/pallas_kernels.py:587 (fused_mul, lazy=False -> _build_call:497)",
     "K3": "lighthouse_tpu/ops/bls/pallas_kernels.py:620 (execute_plan -> _build_call:497)",
@@ -2403,8 +3046,28 @@ def main() -> int:
     if not bls.verify_signature_sets(sblock, device=dev):
         raise RuntimeError("warm-up of the state-block shape did not verify")
     path_logs["state_block"] = dict(fm.launch_log)
+    # phase 15's new batch shapes: a 3-block segment's 6 single-key sets through
+    # the bls API; a backfilled block's proposer signature (one indexed item);
+    # sync-committee messages (one item each) and a contribution (selection
+    # proof, envelope, 64 participants)
+    nrng = np.random.default_rng(args.seed + 15)
+    seg_sets, _ = _block(nrng, raw, sk0, 2 * (1 + NET_BLOCKS) - 3, 1)
+    fm.reset_counts()
+    if not bls.verify_signature_sets(seg_sets, device=dev):
+        raise RuntimeError("warm-up of the segment shape did not verify")
+    path_logs["net_segment"] = dict(fm.launch_log)
+    fm.reset_counts()
+    if not verify_gossip(pool[:1]):
+        raise RuntimeError("warm-up of the historical shape did not verify")
+    path_logs["net_historical"] = dict(fm.launch_log)
+    fm.reset_counts()
+    contribution_shape = [pool[0], pool[1], _batch(nrng, args.validators, sk0, 1, 64)[0]]
+    if not (verify_gossip(pool[1:2]) and verify_gossip(contribution_shape)):
+        raise RuntimeError("warm-up of the sync-message shapes did not verify")
+    path_logs["net_sync"] = dict(fm.launch_log)
     torch.cuda.synchronize()
-    log(f"warm-up of the block, gossip, bisection and state-block paths: {time.time() - t:.2f} s")
+    log(f"warm-up of the block, gossip, bisection, state-block and network paths: "
+        f"{time.time() - t:.2f} s")
     t = time.time()
     kz_logs = kzg_warmup(kz, dev)
     path_logs["kzg_column"] = kz_logs["kzg_column"]  # the batch's rows are timed in phase 14
@@ -2692,7 +3355,6 @@ def main() -> int:
     # 14. a sampling node's slot of blob data on the same chain
     t = time.time()
     km = kzg_phase(espec, chain, kz, lambda i: sk0 + i, dev, erng)
-    del chain
     runs.update(km.pop("runs"))
     kzg_runs = ("kzg_pending", "kzg_poisoned", "kzg_columns", "kzg_import", "kzg_batch",
                 "kzg_column")
@@ -2706,6 +3368,24 @@ def main() -> int:
     log(f"kzg: launches {json.dumps({k: runs[k]['by'] for k in kzg_runs})}; every kzg-path shape "
         f"checked in phase 4; {n_new} import shapes new since phase 4, checked exact; the batch's "
         f"rows timed at n_pad {km['n_pad']}; phase {time.time() - t:.1f} s")
+
+    # 15. a second node over the network, on the same chain
+    t = time.time()
+    nm = network_phase(espec, chain, kz, raw, sk0, dev, erng, args.seed)
+    del chain
+    runs.update(nm.pop("runs"))
+    net_runs = ("net_build", "net_segment", "net_historical", "net_gossip_block", "net_columns",
+                "net_gossip", "net_aggregates", "net_sync", "net_socket")
+    unseen = sorted({s for k in net_runs for s in runs[k]["log"] if s not in done})
+    if unseen:
+        raise RuntimeError(f"network: shapes phases 4-14 did not check: {unseen}")
+    n_new = sum(exact_checks(runs[k]["log"], dev, gen, done) for k in net_runs)
+    nm["phase_s"] = time.time() - t
+    log(f"network: launches {json.dumps({k: runs[k]['by'] for k in net_runs})}; every shape "
+        f"checked before the phase ({n_new} new); gossip through the network "
+        f"{nm['gossip']['attestations']['verified_att_per_s']:.2f} att/s (sockets "
+        f"{nm['sockets']['verified_att_per_s']:.2f}) beside phase 13's processor-direct "
+        f"{ch['gossip']['verified_att_per_s']:.2f} att/s; phase {nm['phase_s']:.1f} s")
 
     log(f"elapsed: {time.time() - t_start:.1f} s")
     table = []
@@ -2748,6 +3428,7 @@ def main() -> int:
                 "state_block": {**sb, "launches": runs["state_block"]["by"]},
                 "chain": {**ch, "launches": {k: runs[k]["by"] for k in chain_runs}},
                 "kzg": {**km, "launches": {k: runs[k]["by"] for k in kzg_runs}},
+                "network": {**nm, "launches": {k: runs[k]["by"] for k in net_runs}},
             }, f, indent=1)
     print(card, flush=True)
     print(json.dumps({"kernels": table}), flush=True)

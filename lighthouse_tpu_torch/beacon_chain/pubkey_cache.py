@@ -105,6 +105,16 @@ class ValidatorPubkeyCache:
     def __len__(self) -> int:
         return len(self._points)
 
+    @property
+    def device(self) -> torch.device:
+        """Where ``device_array`` lives, resolved (raises when that is CUDA
+        and there is none)."""
+        from ..device import resolve_device
+
+        return resolve_device(
+            bls.get_device() if self._device_name is None else self._device_name
+        )
+
     def import_new_pubkeys(self, state) -> None:
         """Decompress + subgroup-check any validators beyond the cache length
         (import_new_pubkeys in the reference; invalid keys are impossible in a
@@ -150,9 +160,7 @@ class ValidatorPubkeyCache:
 
         n = len(self._points)
         if self._device is None or self._device_len < n:
-            dev = resolve_device(
-                bls.get_device() if self._device_name is None else self._device_name
-            )
+            dev = self.device
             start = self._device_len
             parts = [] if self._device is None else [self._device]
             n_seed = 0 if self._seed is None else self._seed.shape[0]

@@ -3,7 +3,7 @@
 
 The collectors (Counter, Gauge, Histogram, Registry) and only the metric
 families the port's modules record into (chain, beacon processor, store,
-caches, firehose, resilience, epoch engine). Names follow Lighthouse's so
+caches, firehose, resilience, epoch engine, loadshed, network). Names follow Lighthouse's so
 dashboards transfer. Collectors are process-global and cheap enough for hot
 paths (an observe is a couple of dict ops); exposition is the Prometheus
 text format.
@@ -235,6 +235,29 @@ STORE_FREEZE_TIMES = REGISTRY.histogram(
 GOSSIP_VERDICT_LATENCY = REGISTRY.histogram(
     "gossip_verdict_latency_seconds",
     "End-to-end wire-ingest to verification-verdict latency",
+)
+ADMISSION_LEVEL = REGISTRY.gauge(
+    "loadshed_admission_level",
+    "Current admission level (0=HEALTHY 1=BUSY 2=SATURATED)",
+)
+ADMISSION_TRANSITIONS = REGISTRY.counter(
+    "loadshed_admission_transitions_total",
+    "Admission-level transitions",
+    label_names=("from_level", "to_level"),
+)
+SHED_REQUESTS = REGISTRY.counter(
+    "loadshed_shed_total",
+    "Requests shed by admission control, per surface and priority class",
+    label_names=("surface", "priority"),
+)
+RPC_EXPIRED = REGISTRY.counter(
+    "rpc_server_expired_total",
+    "Req/Resp requests dropped server-side past the client deadline",
+    label_names=("method",),
+)
+RPC_RTT = REGISTRY.histogram(
+    "rpc_rtt_seconds",
+    "Req/Resp round-trip times feeding the adaptive timeout estimator",
 )
 FIREHOSE_EXPIRED = REGISTRY.counter(
     "firehose_expired_total",

@@ -275,7 +275,8 @@ def test_empty_batch_is_false(registry):
 
 def test_port_imports_neither_jax_nor_reference(registry, batch):
     """A fresh interpreter imports the port (its KZG stack and PeerDAS
-    modules included), verifies on the CPU, runs one numpy epoch boundary,
+    modules, loadshed and the network included), verifies on the CPU, runs
+    one numpy epoch boundary, serves a status from a node on the chain,
     loads the port's own trusted setup, and has loaded no jax and nothing of
     lighthouse_tpu."""
     raw, _, _ = registry
@@ -293,6 +294,9 @@ import lighthouse_tpu_torch.firehose.attester_cache, lighthouse_tpu_torch.execut
 import lighthouse_tpu_torch.utils.logging, lighthouse_tpu_torch.resilience.crashpoints
 import lighthouse_tpu_torch.kzg, lighthouse_tpu_torch.kzg.engine, lighthouse_tpu_torch.ops.kzg
 import lighthouse_tpu_torch.beacon_chain.data_columns, lighthouse_tpu_torch.beacon_chain.peerdas
+import lighthouse_tpu_torch.loadshed, lighthouse_tpu_torch.network
+import lighthouse_tpu_torch.network.gossipsub, lighthouse_tpu_torch.network.boot_node
+from lighthouse_tpu_torch.network import BeaconNodeService, LoopbackTransport
 from lighthouse_tpu_torch import epoch_engine, state_transition
 from lighthouse_tpu_torch.beacon_chain import BeaconChain
 from lighthouse_tpu_torch.beacon_processor import BeaconProcessor
@@ -310,6 +314,8 @@ ok = ok and state.slot == spec.preset.SLOTS_PER_EPOCH + 1
 lighthouse_tpu_torch.bls.set_backend("oracle")
 chain = BeaconChain(spec, state)
 ok = ok and chain.head.slot == state.slot and len(chain.pubkey_cache) == 16
+node = BeaconNodeService("a", spec, state, LoopbackTransport(), device="cpu")
+ok = ok and node.local_status().head_slot == state.slot
 BeaconProcessor(synchronous=True).shutdown()
 setup = lighthouse_tpu_torch.kzg.load_trusted_setup()
 ok = ok and setup.field_elements_per_blob == 4096 and len(setup.g2_monomial) == 65
