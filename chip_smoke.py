@@ -122,14 +122,33 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      (download, the segment's bls halves, column fetch and verifies), the
      backfill batches, gossip att/s beside phase 13's; the segment batch
      under the profiler; host peak RSS and peak device bytes.
-Phases 8-10 and 12-15 each set the counts to 0 before and read them after,
+ 16. a light client of node A and the mass-service batch: node A's
+     ``LightClientServerCache`` (live since phase 13; its time inside every
+     import of phases 13 and 15 reported) holds a latest optimistic update,
+     a finality update where the attested state's finalized block is held,
+     and a period in its update store; node B requests the four
+     light-client methods from A over the loopback (each message through
+     the codec) and a gossipsub socket pair: decoded roots equal A's, the
+     bootstrap verifies (with one branch node flipped it does not), the
+     updates verify through ``verify_update_batch`` on the card (path
+     ``lc_serve``); then 16 optimistic-update sessions over the state's
+     current and next sync committees (512 keys, ~75% bitfields, distinct
+     slots, oracle-signed) in one dispatch (path ``lc_batch``): True over
+     LC_REPS timed batches, one pairing check of 17 pairs each
+     (``PROBE``), False with a tampered signature; a mixed subset (a
+     tampered signature, a tampered header, a malformed encoding) session
+     for session equal to the host loop on the oracle; with both device
+     rungs of ``lc_device`` faulted every session False and no host rung;
+     one batch under the profiler.
+Phases 8-10 and 12-16 each set the counts to 0 before and read them after,
 as phase 5 does, and hold any shape they launched that phase 4 did not see
-(phase 14's column and batch shapes and phase 15's must all be among the
-shapes checked before them: phase 3's warm-up runs one column verify and a
-batch at each n_pad a slot's required cells can give, 64 and 128, a
-3-block segment's 6 single-key sets through the bls API, one indexed item
-(a backfilled block, a sync-committee message) and a contribution's three
-items).
+(phase 14's column and batch shapes, phase 15's and phase 16's must all be
+among the shapes checked before them: phase 3's warm-up runs one column
+verify and a batch at each n_pad a slot's required cells can give, 64 and
+128, a segment's single-key sets (two a block) through the bls API, one
+indexed item (a backfilled block, a sync-committee message), a
+contribution's three items, and light-client batches of 16 and 4 sessions
+over two 512-key committees).
 
 Full configuration: 2^20 validator pubkeys resident as the [N, 3, 25]
 cache (mainnet); main path batches of 64 aggregate signature sets, 512 keys
@@ -139,9 +158,10 @@ of 64 committees x 32 attesters; the state transition over all 2^20
 validators (the parity boundary at 2^18), its block carrying 262,658 keys in
 11 sets; the chain over the same 2^20 registry; PeerDAS at mainnet geometry
 (nothing cut); the network over the same chain and a second 2^20-validator
-node (depth cut: NET_BLOCKS new blocks synced). The last line of stdout is
-the result object; the line before it the kernel table; before that the
-card's name and power limit.
+node (depth cut: NET_BLOCKS new blocks synced); the light client at the
+mainnet sync-committee size (512) and the reference bench's 16 sessions.
+The last line of stdout is the result object; the line before it the
+kernel table; before that the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -169,6 +189,9 @@ KZG_COLUMN_REPS = 5  # timed column verifies (phase 14)
 KZG_BATCH_REPS = 3  # timed batches of every required cell (phase 14)
 NET_BLOCKS = 2  # blocks node A builds for node B's range sync, after phase 14's blob block (phase 15)
 NET_CODEC_REPS = 5  # timed encodes and decodes of a block and a column (phase 15)
+LC_SESSIONS = 16  # the mass-service batch (bench.py:2162 _inner_light_clients; phase 16)
+LC_REPS = 5  # timed batches of it
+LC_MIXED = 4  # sessions of the mixed batch held against the host loop (its time bounds it)
 # int32 multiply-add rate outside the tensor cores: an H100 SM has half as
 # many INT32 lanes as FP32 lanes, so half the 67 TFLOP/s fp32 peak
 H100_INT32_OPS_PER_S = 33.5e12
@@ -505,11 +528,11 @@ def _epoch_state(spec, raw, comp, rng):
     15 ETH, balances 31-33 ETH, random participation, 8 pending deposits
     and 4 pending consolidations, at the last slot of epoch
     ``STATE_EPOCH``. Besides, what a block needs: a post-merge execution
-    header and a sync committee of 512 registry validators. Returns
-    (state, the sync committee's validator indices)."""
+    header, a current sync committee of 512 registry validators and a next
+    one of 512 others. Returns (state, the current sync committee's
+    validator indices)."""
     import numpy as np
 
-    from lighthouse_tpu_torch.oracle import curves as oc
     from lighthouse_tpu_torch.types.containers import Checkpoint, Fork, Validator, for_preset
     from lighthouse_tpu_torch.types.spec import FAR_FUTURE_EPOCH
 
@@ -554,15 +577,26 @@ def _epoch_state(spec, raw, comp, rng):
     state.latest_execution_payload_header = ns.payload_header_types["electra"](
         block_hash=rng.bytes(32), block_number=1, timestamp=0)
     sync_idx = rng.choice(n, size=p.SYNC_COMMITTEE_SIZE, replace=False)
-    agg = None
-    for i in sync_idx:
-        agg = oc.g1_add(agg, (int.from_bytes(raw[i, :48].tobytes(), "big"),
-                              int.from_bytes(raw[i, 48:].tobytes(), "big")))
-    committee = ns.SyncCommittee(pubkeys=[comp[i] for i in sync_idx],
-                                 aggregate_pubkey=oc.g1_compress(agg))
-    state.current_sync_committee = committee
-    state.next_sync_committee = committee.copy()
+    state.current_sync_committee = _sync_committee(ns, raw, comp, sync_idx)
+    # the next period's committee: other members (drawn without touching
+    # rng), so that the light client's batch gathers two committee rows
+    next_idx = np.random.default_rng([STATE_EPOCH, n]).choice(n, size=p.SYNC_COMMITTEE_SIZE,
+                                                               replace=False)
+    state.next_sync_committee = _sync_committee(ns, raw, comp, next_idx)
     return state, sync_idx
+
+
+def _sync_committee(ns, raw, comp, idx):
+    """A SyncCommittee of the registry's validators ``idx`` (compressed keys
+    ``comp``, or None to compress them from the affine ``raw`` rows)."""
+    from lighthouse_tpu_torch.oracle import curves as oc
+
+    agg, keys = None, []
+    for i in idx:
+        pt = (int.from_bytes(raw[i, :48].tobytes(), "big"), int.from_bytes(raw[i, 48:].tobytes(), "big"))
+        agg = oc.g1_add(agg, pt)
+        keys.append(comp[i] if comp is not None else oc.g1_compress(pt))
+    return ns.SyncCommittee(pubkeys=keys, aggregate_pubkey=oc.g1_compress(agg))
 
 
 def _next_epoch(spec, state, rng) -> None:
@@ -1097,6 +1131,39 @@ def _timed_import(chain, signed, dev) -> tuple:
     return root, sp.split(total_ms), sp.batches, sp.epochs
 
 
+def _lc_timer(chain) -> list:
+    """The chain's light-client server cache timed inside every import: its
+    block observer replaced by one that appends [slot, ms, error or None] to
+    the list returned (the chain swallows observer errors: ``_lc_ms``
+    raises on one)."""
+    rec = []
+    obs = chain.block_observers
+    i = obs.index(chain.light_client_cache.on_imported_block)
+    real = obs[i]
+
+    def timed(signed):
+        t0, err = time.perf_counter(), None
+        try:
+            real(signed)
+        except Exception as e:
+            err = repr(e)
+            raise
+        finally:
+            rec.append([int(signed.message.slot), (time.perf_counter() - t0) * 1e3, err])
+
+    obs[i] = timed
+    return rec
+
+
+def _lc_ms(rec: list, since: int) -> float:
+    """The server cache's ms over the imports recorded from ``since`` on;
+    raises on an error recorded there."""
+    bad = [r for r in rec[since:] if r[2]]
+    if bad:
+        raise RuntimeError(f"the light-client server cache failed inside an import: {bad}")
+    return sum(r[1] for r in rec[since:])
+
+
 def _profiled_replay(spec, chain, state, signed) -> dict:
     """The device-bearing tail of an import replayed on ``state`` (a copy of
     the pre-state one slot before the block) under torch.profiler: the last
@@ -1291,6 +1358,7 @@ def chain_phase(spec, anchor, raw, sk0: int, sync_idx, block, bad, dev_cache, de
         raise RuntimeError("the chain did not take the seeded cache")
     if chain.head.root != bytes(block.message.parent_root):
         raise RuntimeError("the anchor's root is not the block's parent")
+    lc_rec = out["light_client"] = _lc_timer(chain)
     log(f"chain: booted on the {len(anchor.validators)}-validator anchor at slot "
         f"{int(anchor.slot)}: seeded pubkey cache {seed_s:.2f} s (checked against the state's "
         f"compressed keys; a twisted seed raised), device tensor == phase 2's {upload_s:.2f} s, "
@@ -1300,6 +1368,7 @@ def chain_phase(spec, anchor, raw, sk0: int, sync_idx, block, bad, dev_cache, de
     fm.reset_counts()
     root1, split1, batches, _ = _timed_import(chain, block, dev)
     runs["chain_import"] = _read_counts("chain import")
+    split1["light_client_ms"] = _lc_ms(lc_rec, 0)
     if len(batches) != 1 or batches[0]["ok"] is not True:
         raise RuntimeError(f"chain import: bls batches {batches}")
     if chain.head.root != root1:
@@ -1347,8 +1416,10 @@ def chain_phase(spec, anchor, raw, sk0: int, sync_idx, block, bad, dev_cache, de
     build2_s = time.time() - t
     esnap = epoch_sup.snapshot()
     fm.reset_counts()
+    n_lc = len(lc_rec)
     root2, split2, batches2, epochs2 = _timed_import(chain, block2, dev)
     runs["chain_import2"] = _read_counts("chain import across the epoch boundary")
+    split2["light_client_ms"] = _lc_ms(lc_rec, n_lc)
     if len(batches2) != 1 or batches2[0]["ok"] is not True:
         raise RuntimeError(f"chain import 2: bls batches {batches2}")
     if len(epochs2) != 1 or epochs2[0][0] is not True:
@@ -2063,7 +2134,7 @@ def _verdicts(results, items) -> list:
     return sorted(roots.index(x.tree_root()) for x, v in results if isinstance(v, Exception))
 
 
-def network_phase(spec, chain, kz, raw, sk0: int, dev, rng, seed: int) -> dict:
+def network_phase(spec, chain, kz, raw, sk0: int, dev, rng, seed: int, lc_a: list) -> tuple:
     """Phase 15: a second node over the network, on phase 13-14's chain.
     Node A serves that chain; node B boots from a copy of phase 13's
     post-import-2 state (its own seeded pubkey cache, store, PeerDAS custody)
@@ -2075,7 +2146,10 @@ def network_phase(spec, chain, kz, raw, sk0: int, dev, rng, seed: int) -> dict:
     messages and a contribution); then two gossipsub ``SocketTransport``
     endpoints met through a ``BootNode`` carry attestations, a
     BlocksByRange and a DataColumnSidecarsByRoot. Counts are set to 0
-    before each run and read after it (``runs``)."""
+    before each run and read after it (``runs``). Both nodes' light-client
+    server caches are timed inside every import (``lc_a``: node A's record,
+    from phase 13). Returns (measurements, the nodes: A, B, B's chain and
+    their bus, for phase 16)."""
     import hashlib
     import random
     import resource
@@ -2104,6 +2178,7 @@ def network_phase(spec, chain, kz, raw, sk0: int, dev, rng, seed: int) -> dict:
 
     ns, ctx = for_preset(spec.preset.name), kz["ctx"]
     out, runs, patches = {"validators": len(chain.head.state.validators)}, {}, _Patches()
+    n_lc_a = len(lc_a)
     kzg_engine.set_kzg_backend("device", device=dev)
     bls.set_backend("device", device=dev)
     if dev.type == "cuda":
@@ -2140,6 +2215,7 @@ def network_phase(spec, chain, kz, raw, sk0: int, dev, rng, seed: int) -> dict:
                           slot_clock=ManualSlotClock(int(chain.head.slot)), pubkey_cache=cache_b)
     cache_b.device_array()
     _sync(dev)
+    lc_b = _lc_timer(chain_b)
     b = BeaconNodeService("B", spec, None, bus, chain=chain_b, device=dev)
     sampler_b = chain_b.enable_peerdas(ctx, hashlib.sha256(b"chip_smoke node B").digest())
     out["boot_b_s"] = time.time() - t
@@ -2539,6 +2615,353 @@ def network_phase(spec, chain, kz, raw, sk0: int, dev, rng, seed: int) -> dict:
     log(f"network profiled segment batch ({len(seg_sets)} sets): {wall:.2f} ms wall, device busy "
         f"{busy:.3f} ms, {ops} aten ops, idle share {out['segment_profile']['idle_share']}; host peak "
         f"RSS {out['peak_rss_bytes']} bytes (two chains), peak device bytes {out['peak_device_bytes']}")
+    out["light_client"] = {"A": lc_a[n_lc_a:], "B": lc_b, "A_ms": _lc_ms(lc_a, n_lc_a),
+                           "B_ms": _lc_ms(lc_b, 0)}
+    log(f"network light-client server caches inside the phase's imports: node A "
+        f"{json.dumps([[r[0], round(r[1], 3)] for r in lc_a[n_lc_a:]])} (slot, ms), node B "
+        f"{json.dumps([[r[0], round(r[1], 3)] for r in lc_b])}")
+    out["runs"] = runs
+    return out, {"a": a, "b": b, "bus": bus, "chain_b": chain_b}
+
+
+# --------------------------------------------------------------------------------------
+# The light client (phase 16)
+# --------------------------------------------------------------------------------------
+
+
+def _lc_sessions(spec, committees, gvr: bytes, sk0: int, n: int, rng, slot0: int) -> list:
+    """``n`` optimistic-update sessions alternating over ``committees``
+    ((SyncCommittee, validator indices) pairs): ~75% random bitfields,
+    distinct attested slots from ``slot0`` on, random header roots, each
+    signed by the oracle with the sum of its participants' secret keys
+    (validator i's is sk0 + i), as the reference's ``fabricate_lc_sessions``
+    signs them. Returns (update, committee) pairs."""
+    import numpy as np
+
+    from lighthouse_tpu_torch.light_client.types import light_client_types
+    from lighthouse_tpu_torch.light_client.verify import sync_signing_root
+    from lighthouse_tpu_torch.oracle import ciphersuite as cs
+    from lighthouse_tpu_torch.oracle import curves as oc
+    from lighthouse_tpu_torch.oracle.fields import R
+    from lighthouse_tpu_torch.types.containers import BeaconBlockHeader, for_preset
+
+    ns = for_preset(spec.preset.name)
+    lc = light_client_types(spec.preset.name, spec.fork_name_at_slot(slot0))
+    floor = max(1, int(spec.preset.MIN_SYNC_COMMITTEE_PARTICIPANTS))
+    out = []
+    for i in range(n):
+        committee, idx = committees[i % len(committees)]
+        idx = np.asarray(idx, dtype=np.int64)
+        bits = rng.random(idx.size) < 0.75
+        while bits.sum() < floor:
+            bits[rng.integers(0, idx.size)] = True
+        update = lc.LightClientOptimisticUpdate(
+            attested_header=lc.LightClientHeader(beacon=BeaconBlockHeader(
+                slot=slot0 + i, proposer_index=int(rng.integers(0, 1 << 20)),
+                parent_root=rng.bytes(32), state_root=rng.bytes(32), body_root=rng.bytes(32))),
+            sync_aggregate=ns.SyncAggregate(sync_committee_bits=bits,
+                                            sync_committee_signature=b"\x00" * 96),
+            signature_slot=slot0 + i + 1)
+        sk = (int(bits.sum()) * sk0 + int(idx[bits].sum())) % R
+        update.sync_aggregate.sync_committee_signature = oc.g2_compress(
+            cs.sign(sk, sync_signing_root(spec, update, gvr)))
+        out.append((update, committee))
+    return out
+
+
+def _lc_tampered(session, mode: str):
+    """A copy of ``session`` with one bit of its signature's x flipped
+    ("signature"), its header's state root changed ("header": the signature
+    no longer covers it) or its signature's compression bit cleared
+    ("malformed")."""
+    update, committee = session
+    u = type(update).decode(update.serialize())
+    sig = bytearray(bytes(u.sync_aggregate.sync_committee_signature))
+    if mode == "signature":
+        sig[50] ^= 0x01
+    elif mode == "malformed":
+        sig[0] &= 0x7F
+    else:
+        u.attested_header.beacon.state_root = b"\xfe" * 32
+    u.sync_aggregate.sync_committee_signature = bytes(sig)
+    return u, committee
+
+
+def _lc_roots(x):
+    """Tree roots of a light-client response (None stays None)."""
+    if x is None:
+        return None
+    if isinstance(x, list):
+        return [u.tree_root() for u in x]
+    return x.tree_root()
+
+
+def lc_warmup(spec, raw, sk0: int, dev, seed: int) -> dict:
+    """Phase 3's light-client paths at phase 16's shapes: two committees of
+    512 registry validators (random ones: the kernels' shapes depend only on
+    the batch and committee sizes) and LC_SESSIONS sessions over them
+    through the engine phase 16 uses; one batch of all of them (path
+    ``lc_batch``) and one of LC_MIXED (path ``lc_serve``: the updates from
+    the wire and the mixed batch's bisection all pad to 4 rows). Returns
+    their launch logs and times."""
+    import numpy as np
+
+    from lighthouse_tpu_torch.light_client import engine as lce
+    from lighthouse_tpu_torch.ops.bls import fused_mul as fm
+    from lighthouse_tpu_torch.types.containers import for_preset
+
+    rng = np.random.default_rng(seed + 16)
+    ns, n = for_preset(spec.preset.name), raw.shape[0]
+    t = time.time()
+    committees = []
+    for _ in range(2):
+        idx = rng.choice(n, size=spec.preset.SYNC_COMMITTEE_SIZE, replace=False)
+        committees.append((_sync_committee(ns, raw, None, idx), idx))
+    gvr = rng.bytes(32)
+    sessions = _lc_sessions(spec, committees, gvr, sk0, LC_SESSIONS, rng,
+                            STATE_EPOCH * spec.preset.SLOTS_PER_EPOCH)
+    out = {"fixture_s": time.time() - t, "logs": {}}
+    eng = lce.get_engine(spec, dev)
+    t = time.time()
+    for c, _ in committees:
+        eng.committee_row(c)
+    out["rows_s"] = time.time() - t
+    t = time.time()
+    for path, batch in (("lc_batch", sessions), ("lc_serve", sessions[:LC_MIXED])):
+        fm.reset_counts()
+        if not eng.verify_batch(batch, gvr):
+            raise RuntimeError(f"warm-up of the light-client path {path} did not verify")
+        out["logs"][path] = dict(fm.launch_log)
+    _sync(dev)
+    out["verify_s"] = time.time() - t
+    return out
+
+
+def lc_phase(spec, chain, net, sk0: int, dev, rng, seed: int) -> dict:
+    """Phase 16: a light client of the port's node and the mass-service
+    batch, on phases 13-15's chain (node A, its ``LightClientServerCache``
+    live since phase 13) and node B. (a) what A's server holds; (b) B
+    requests the four light-client methods from A over the loopback (each
+    message through the codec) and over a gossipsub socket pair, checks
+    the bootstrap and verifies the updates through ``verify_update_batch``
+    on the card (path ``lc_serve``); (c) LC_SESSIONS sessions over the
+    state's current and next sync committees in one dispatch, timed
+    (``lc_batch``), a tampered one, a mixed subset against the host loop,
+    the ``lc_device`` ladder with both device rungs faulted, one batch
+    under the profiler. Counts are set to 0 before each run on the card and
+    read after it (``runs``)."""
+    import random
+
+    from lighthouse_tpu_torch import bls, resilience
+    from lighthouse_tpu_torch.bls.backend import bucket
+    from lighthouse_tpu_torch.light_client import engine as lce
+    from lighthouse_tpu_torch.light_client.verify import verify_bootstrap
+    from lighthouse_tpu_torch.network import BeaconNodeService, BootNode, GossipsubTransport, MessageCodec
+    from lighthouse_tpu_torch.ops.bls import fused_mul as fm
+    from lighthouse_tpu_torch.ops.lc import verify as lcv
+    from lighthouse_tpu_torch.resilience.inject import injector
+    from lighthouse_tpu_torch.resilience.supervisor import SupervisorConfig
+
+    out, runs = {}, {}
+    server = chain.light_client_cache
+    gvr = bytes(chain.head.state.genesis_validators_root)
+    lce.set_lc_backend("device", device=dev)
+    eng = lce.get_engine(spec)
+
+    # (a) the server: what the imports of phases 13-15 left in it
+    opt = server.latest_optimistic
+    if opt is None:
+        raise RuntimeError("light client: node A's server holds no optimistic update")
+    att_root = opt.attested_header.beacon.tree_root()
+    att_state = chain.state_by_root(att_root)
+    fin_held = chain.get_signed_block(bytes(att_state.finalized_checkpoint.root)) is not None
+    if fin_held and server.latest_finality is None:
+        raise RuntimeError("light client: the attested state's finalized block is held, no finality update")
+    periods = server.update_store.known_periods()
+    if not periods:
+        raise RuntimeError("light client: node A's update store holds no period")
+    out["server"] = {"optimistic_signature_slot": int(opt.signature_slot),
+                     "attested_slot": int(opt.attested_header.beacon.slot),
+                     "finalized_block_held": fin_held, "finality": server.latest_finality is not None,
+                     "periods": periods}
+    log(f"light client server (node A): latest optimistic update signed at slot "
+        f"{int(opt.signature_slot)} over the block at slot {int(opt.attested_header.beacon.slot)}; "
+        f"the attested state's finalized block {'held: a finality update' if fin_held else 'not held (the anchor state finalizes a block the chain never imported): no finality update'}; "
+        f"update store periods {periods}")
+
+    # (b) a light client over the wire
+    requests = [("light_client_bootstrap", att_root),
+                ("light_client_updates_by_range", (periods[0], periods[-1] - periods[0] + 1)),
+                ("light_client_optimistic_update", None), ("light_client_finality_update", None)]
+    codec, bus = MessageCodec(spec), net["bus"]
+    want, wire, got_loop, got_sock = {}, {}, {}, {}
+    for method, payload in requests:
+        t0 = time.perf_counter()
+        req = codec.decode_request(method, codec.encode_request(method, payload))
+        want[method] = bus.request("B", "A", method, req)  # node A's own answer
+        data = codec.encode_response(method, want[method])
+        got_loop[method] = codec.decode_response(method, data)
+        wire[method] = {"loopback_ms": (time.perf_counter() - t0) * 1e3, "bytes": len(data)}
+    boot_node = BootNode().start()
+    ta = GossipsubTransport(spec, rng=random.Random(seed + 16))
+    tb = GossipsubTransport(spec, rng=random.Random(seed + 17))
+    sa = BeaconNodeService(ta.local_addr, spec, None, ta, chain=chain, device=dev)
+    sb = BeaconNodeService(tb.local_addr, spec, None, tb, chain=net["chain_b"], device=dev)
+    try:
+        ta.discover(boot_node.local_addr)
+        if tb.discover(boot_node.local_addr) != [ta.local_addr]:
+            raise RuntimeError("light client: the boot node did not return node A")
+        _wait_for(lambda: ta.local_addr in tb.peers() and tb.local_addr in ta.peers(), 10.0, "peers")
+        for method, payload in requests:
+            t0 = time.perf_counter()
+            got_sock[method] = tb.request(sb.node_id, ta.local_addr, method, payload)
+            wire[method]["socket_ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        sb.stop()
+        sa.stop()
+        boot_node.stop()
+    for method, _ in requests:
+        w = _lc_roots(want[method])
+        if _lc_roots(got_loop[method]) != w or _lc_roots(got_sock[method]) != w:
+            raise RuntimeError(f"light client: {method} decoded roots != node A's")
+    boot = got_sock["light_client_bootstrap"]
+    if boot is None or not verify_bootstrap(spec, boot, att_root):
+        raise RuntimeError("light client: the bootstrap from node A did not verify")
+    flipped = type(boot).decode(boot.serialize())
+    branch = [bytes(x) for x in flipped.current_sync_committee_branch]
+    branch[3] = bytes([branch[3][0] ^ 1]) + branch[3][1:]
+    flipped.current_sync_committee_branch = branch
+    if verify_bootstrap(spec, flipped, att_root):
+        raise RuntimeError("light client: a bootstrap with a flipped branch node verified")
+    committee = boot.current_sync_committee
+    serve = [(got_sock["light_client_optimistic_update"], committee)]
+    serve += [(u, committee) for u in got_sock["light_client_updates_by_range"]]
+    if got_sock["light_client_finality_update"] is not None:
+        serve.append((got_sock["light_client_finality_update"], committee))
+    t = time.time()
+    eng.committee_row(committee)  # decompressed once (bls.PublicKey: subgroup checks)
+    serve_row_s = time.time() - t
+    fm.reset_counts()
+    t0 = time.perf_counter()
+    verdicts = lce.verify_update_batch(spec, serve, gvr)
+    _sync(dev)
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    runs["lc_serve"] = _read_counts("light client: the updates from the wire")
+    if verdicts != [True] * len(serve):
+        raise RuntimeError(f"light client: the served updates' verdicts {verdicts}")
+    out["wire"] = {"methods": wire, "sessions": len(serve),
+                   "committee_row_s": serve_row_s, "verify_ms": serve_ms}
+    log(f"light client over the wire: node B requested the four methods from node A over the "
+        f"loopback (through the codec) and a gossipsub socket pair: "
+        f"{json.dumps({m.split('light_client_')[1]: {k: round(v, 2) for k, v in w.items()} for m, w in wire.items()})}"
+        f" (ms, bytes); decoded roots == node A's; the bootstrap verifies, with one branch node "
+        f"flipped it does not; {len(serve)} updates verified through verify_update_batch on the card "
+        f"in {serve_ms:.2f} ms (the committee's row decompressed first, {serve_row_s:.2f} s); launches "
+        f"{json.dumps(runs['lc_serve']['by'])}")
+
+    # (c) the mass-service batch: LC_SESSIONS sessions over two committees
+    state = chain.head.state
+    committees = [(c, [chain.pubkey_cache.get_index(bytes(pk)) for pk in c.pubkeys])
+                  for c in (state.current_sync_committee, state.next_sync_committee)]
+    t = time.time()
+    sessions = _lc_sessions(spec, committees, gvr, sk0, LC_SESSIONS, rng, int(state.slot) + 1)
+    fixture_s = time.time() - t
+    t = time.time()
+    rows = {eng.committee_row(c) for c, _ in committees}
+    rows_s = time.time() - t
+    if len(rows) != 2:
+        raise RuntimeError(f"light client: the two committees share a cache row ({rows})")
+    n_pad = bucket(LC_SESSIONS)
+    probe0 = dict(lcv.PROBE)
+    host_ms, batch_ms = [], []
+    fm.reset_counts()
+    for _ in range(LC_REPS):
+        t0 = time.perf_counter()
+        b_ = eng.marshal(sessions, gvr, n_pad)
+        _sync(dev)
+        t1 = time.perf_counter()
+        ok = bool(eng.run(b_))
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+        host_ms.append((t1 - t0) * 1e3)
+        if not ok:
+            raise RuntimeError("light client: the honest batch did not verify")
+    runs["lc_batch"] = _read_counts("light client: the mass-service batch")
+    probe = {k: lcv.PROBE[k] - probe0[k] for k in probe0}
+    if probe != {"pairing_checks": LC_REPS, "pairs": LC_REPS * (n_pad + 1), "agg_sums": LC_REPS}:
+        raise RuntimeError(f"light client: PROBE over {LC_REPS} batches {probe}")
+    bad = list(sessions)
+    bad[5] = _lc_tampered(sessions[5], "signature")
+    fm.reset_counts()
+    if eng.verify_batch(bad, gvr):
+        raise RuntimeError("light client: the batch with a tampered signature verified")
+    runs["lc_tampered"] = _read_counts("light client: the tampered batch")
+    mixed = [_lc_tampered(sessions[0], "signature"), sessions[1], _lc_tampered(sessions[2], "header"),
+             _lc_tampered(sessions[3], "malformed")]
+    fm.reset_counts()
+    dev_v = lce.verify_update_batch(spec, mixed, gvr)
+    runs["lc_mixed"] = _read_counts("light client: the mixed batch")
+    try:
+        bls.set_backend("oracle")
+        lce.set_lc_backend("host")
+        t = time.time()
+        host_v = lce.verify_update_batch(spec, mixed, gvr)
+        host_s = time.time() - t
+    finally:
+        bls.set_backend("device", device=dev)
+        lce.set_lc_backend("device", device=dev)
+    if dev_v != host_v or host_v != [False, True, False, False]:
+        raise RuntimeError(f"light client: mixed verdicts device {dev_v}, host loop {host_v}")
+    # both device rungs faulted: every session unverified, no host rung (one
+    # retry, millisecond backoff: the verdict, not the backoff, is checked)
+    sup, patches, host_calls = resilience.lc_supervisor(), _Patches(), []
+    saved_config = sup.config
+    sup.config = SupervisorConfig(max_retries=1, backoff_base_s=0.001, backoff_max_s=0.005)
+    real_host = lce.verify_light_client_update
+    patches.set(lce, "verify_light_client_update",
+                lambda *a, **k: host_calls.append(1) or real_host(*a, **k))
+    injector.install("stage=lc.batch_verify;mode=raise;every=1|"
+                     "stage=lc.batch_verify/device_reduced;mode=raise;every=1")
+    try:
+        closed = lce.verify_update_batch(spec, sessions[:LC_MIXED], gvr)
+        snap = sup.snapshot()
+    finally:
+        injector.clear()
+        patches.undo()
+        sup.config = saved_config
+        sup.reset()
+    if closed != [False] * LC_MIXED or host_calls or not snap["exhausted"]:
+        raise RuntimeError(f"light client: faulted ladder gave {closed}, host calls {len(host_calls)}, "
+                           f"supervisor {snap}")
+    prof_ok, prof_ms, dev_us, ops = _profiled(lambda: eng.verify_batch(sessions, gvr))
+    if prof_ok is not True:
+        raise RuntimeError("light client: the profiled batch did not verify")
+    busy = sum(dev_us.values()) / 1e3
+    spread = _spread(batch_ms)
+    out["batch"] = {
+        "sessions": LC_SESSIONS, "n_pad": n_pad, "committee_size": len(committees[0][1]),
+        "cache_rows": sorted(rows), "fixture_s": fixture_s, "committee_rows_s": rows_s,
+        "batch_ms": spread, "host_half_ms": _spread(host_ms),
+        "sessions_per_s": LC_SESSIONS / (spread["median"] / 1e3),
+        "launches_per_batch": {k: v / LC_REPS for k, v in runs["lc_batch"]["by"].items()},
+        "probe_per_batch": {k: v / LC_REPS for k, v in probe.items()},
+        "busy_ms": busy, "profiled_ms": prof_ms, "aten_ops": ops,
+        "idle_share": 1 - busy / spread["median"] if busy else None,
+        "cache_bytes": eng.cache_bytes(), "mixed": dev_v, "host_loop_s": host_s,
+        "host_loop_sessions_per_s": len(mixed) / host_s, "fail_closed": closed,
+        "fail_closed_supervisor": snap,
+        "device_ms_by_name": {k[:80]: v / 1e3 for k, v in sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]},
+    }
+    log(f"light client batch: {LC_SESSIONS} optimistic-update sessions over the state's current and "
+        f"next sync committees ({len(committees[0][1])} keys each, cache rows {sorted(rows)}, "
+        f"decompressed in {rows_s:.2f} s; sessions signed in {fixture_s:.2f} s), n_pad {n_pad}: "
+        f"{LC_REPS} batches {json.dumps(spread)} ms (host half {json.dumps(_spread(host_ms))} ms), "
+        f"{out['batch']['sessions_per_s']:.2f} sessions/s; one pairing check of {n_pad + 1} pairs and "
+        f"one aggregation sum per batch (PROBE); launches per batch "
+        f"{json.dumps(out['batch']['launches_per_batch'])}; profiled: device busy {busy:.3f} ms of "
+        f"{prof_ms:.3f} ms ({ops} aten ops), idle share {out['batch']['idle_share']}; committee cache "
+        f"{eng.cache_bytes()} B on the card; a tampered signature: False; mixed {dev_v} == host loop "
+        f"on the oracle ({len(mixed) / host_s:.3f} sessions/s); both device rungs faulted: "
+        f"{closed}, no host rung")
     out["runs"] = runs
     return out
 
@@ -3046,7 +3469,7 @@ def main() -> int:
     if not bls.verify_signature_sets(sblock, device=dev):
         raise RuntimeError("warm-up of the state-block shape did not verify")
     path_logs["state_block"] = dict(fm.launch_log)
-    # phase 15's new batch shapes: a 3-block segment's 6 single-key sets through
+    # phase 15's new batch shapes: the segment's single-key sets (two a block) through
     # the bls API; a backfilled block's proposer signature (one indexed item);
     # sync-committee messages (one item each) and a contribution (selection
     # proof, envelope, 64 participants)
@@ -3068,6 +3491,16 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"warm-up of the block, gossip, bisection, state-block and network paths: "
         f"{time.time() - t:.2f} s")
+    from lighthouse_tpu_torch.types.spec import mainnet_spec
+
+    espec = mainnet_spec(altair_fork_epoch=0, bellatrix_fork_epoch=0, capella_fork_epoch=0,
+                         deneb_fork_epoch=0, electra_fork_epoch=0)
+    lc_warm = lc_warmup(espec, raw, sk0, dev, args.seed)
+    path_logs.update(lc_warm.pop("logs"))
+    log(f"warm-up of the light-client paths: two 512-key committees and {LC_SESSIONS} sessions "
+        f"built in {lc_warm['fixture_s']:.2f} s, their cache rows decompressed in "
+        f"{lc_warm['rows_s']:.2f} s; batches of {LC_SESSIONS} and {LC_MIXED} sessions True in "
+        f"{lc_warm['verify_s']:.2f} s")
     t = time.time()
     kz_logs = kzg_warmup(kz, dev)
     path_logs["kzg_column"] = kz_logs["kzg_column"]  # the batch's rows are timed in phase 14
@@ -3087,7 +3520,7 @@ def main() -> int:
     )
     log(f"exact: {n_exact} (kernel, schedule or chain, rows) shapes bit-exact against the "
         f"plain versions in {time.time() - t:.2f} s")
-    krows = timed_rows(path_logs, dev, gen, largest=("state_block",))
+    krows = timed_rows(path_logs, dev, gen, largest=("state_block", "lc_batch"))
     clusters = cluster_checks(dev, gen)
 
     # 5. the main path
@@ -3276,10 +3709,7 @@ def main() -> int:
 
     # 11. epoch boundaries on the device (BASELINE config #4)
     from lighthouse_tpu_torch.oracle import curves as oc
-    from lighthouse_tpu_torch.types.spec import mainnet_spec
 
-    espec = mainnet_spec(altair_fork_epoch=0, bellatrix_fork_epoch=0, capella_fork_epoch=0,
-                         deneb_fork_epoch=0, electra_fork_epoch=0)
     erng = np.random.default_rng(args.seed + 11)
     t = time.time()
     comp = _compressed(raw)
@@ -3371,8 +3801,7 @@ def main() -> int:
 
     # 15. a second node over the network, on the same chain
     t = time.time()
-    nm = network_phase(espec, chain, kz, raw, sk0, dev, erng, args.seed)
-    del chain
+    nm, net = network_phase(espec, chain, kz, raw, sk0, dev, erng, args.seed, ch["light_client"])
     runs.update(nm.pop("runs"))
     net_runs = ("net_build", "net_segment", "net_historical", "net_gossip_block", "net_columns",
                 "net_gossip", "net_aggregates", "net_sync", "net_socket")
@@ -3386,6 +3815,25 @@ def main() -> int:
         f"{nm['gossip']['attestations']['verified_att_per_s']:.2f} att/s (sockets "
         f"{nm['sockets']['verified_att_per_s']:.2f}) beside phase 13's processor-direct "
         f"{ch['gossip']['verified_att_per_s']:.2f} att/s; phase {nm['phase_s']:.1f} s")
+
+    # 16. a light client of the port's node, and the mass-service batch
+    t = time.time()
+    lm = lc_phase(espec, chain, net, sk0, dev, erng, args.seed)
+    del chain, net
+    runs.update(lm.pop("runs"))
+    lc_runs = ("lc_serve", "lc_batch", "lc_tampered", "lc_mixed")
+    unseen = sorted({s for k in lc_runs for s in runs[k]["log"] if s not in done})
+    if unseen:
+        raise RuntimeError(f"light client: shapes phase 4 did not check: {unseen}")
+    n_new = sum(exact_checks(runs[k]["log"], dev, gen, done) for k in lc_runs)
+    lm["phase_s"] = time.time() - t
+    lc_import_ms = {"phase13": [ch["import1"]["light_client_ms"], ch["import2"]["light_client_ms"]],
+                    "phase15": {"A": nm["light_client"]["A_ms"], "B": nm["light_client"]["B_ms"]}}
+    log(f"light client: launches {json.dumps({k: runs[k]['by'] for k in lc_runs})}; every shape "
+        f"checked in phase 4 ({n_new} new); the server cache inside the imports: phase 13 "
+        f"{json.dumps([round(x, 2) for x in lc_import_ms['phase13']])} ms, phase 15 "
+        f"{json.dumps({k: round(v, 2) for k, v in lc_import_ms['phase15'].items()})} ms in all; "
+        f"phase {lm['phase_s']:.1f} s")
 
     log(f"elapsed: {time.time() - t_start:.1f} s")
     table = []
@@ -3429,6 +3877,8 @@ def main() -> int:
                 "chain": {**ch, "launches": {k: runs[k]["by"] for k in chain_runs}},
                 "kzg": {**km, "launches": {k: runs[k]["by"] for k in kzg_runs}},
                 "network": {**nm, "launches": {k: runs[k]["by"] for k in net_runs}},
+                "light_client": {**lm, "warmup": lc_warm, "import_ms": lc_import_ms,
+                                 "launches": {k: runs[k]["by"] for k in lc_runs}},
             }, f, indent=1)
     print(card, flush=True)
     print(json.dumps({"kernels": table}), flush=True)

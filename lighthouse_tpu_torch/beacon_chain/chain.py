@@ -19,8 +19,10 @@ through the generic ``SignatureSet`` arm. Epoch boundaries inside
 sampling (``enable_peerdas``) decides availability from columns verified by
 ``beacon_chain.data_columns`` through the port's ``kzg`` engine. Paths that
 reach a module the port does not have yet raise ``NotImplementedError``
-naming its ROADMAP item: fork-choice persistence on a durable store (item 1). The mesh planner is None (the mesh is off; item 2)
-and so is the light-client server cache (item 4).
+naming its ROADMAP item: fork-choice persistence on a durable store (item 1). The mesh planner is None (the mesh is off; item 2).
+The light-client server cache (``light_client.LightClientServerCache``)
+rides the block-observer seam and persists its update archive in the hot
+store.
 """
 
 from __future__ import annotations
@@ -237,9 +239,10 @@ class BeaconChain:
         self._observed_attesters: dict[int, set[int]] = {}
         self._observed_proposers: dict[int, set[int]] = {}
         # light-client server: bootstraps + latest optimistic/finality
-        # updates from imported sync aggregates (light_client_server_cache.rs).
-        # None until the port has the light client (ROADMAP Queue 1 item 4)
-        self.light_client_cache = None
+        # updates from imported sync aggregates (light_client_server_cache.rs)
+        from ..light_client import LightClientServerCache
+
+        self.light_client_cache = LightClientServerCache(self)
 
     def _record_liveness(self, table: dict, epoch: int, indices) -> None:
         s = table.setdefault(epoch, set())

@@ -16,8 +16,7 @@ sync with batched epochs (``network/src/sync/manager.rs``,
 
 The port's copy of ``lighthouse_tpu/network`` (host Python; the device work
 is the chain's). ``discovery`` (discv5 ENR lookups over the native bls
-backend) is not ported yet, and the four light-client Req/Resp methods raise
-``WireError`` until the port has the light-client server.
+backend) is not ported yet.
 """
 
 from .boot_node import BootNode  # noqa: F401

@@ -10,9 +10,8 @@ Gossip payloads are fork-tagged with a leading fork byte so block containers
 decode under the right fork variant without needing the slot first.
 
 The port's copy of ``lighthouse_tpu/network/codec.py``: the same bytes for
-every topic and method, so state crosses between the two packages on the
-wire. The four light-client methods raise ``WireError`` until the port has
-the light-client server (ROADMAP Queue 1 item 2.4).
+every topic and method (the four light-client methods included), so state
+crosses between the two packages on the wire.
 """
 
 from __future__ import annotations
@@ -28,21 +27,6 @@ _FORK_ORDER = ["phase0", "altair", "bellatrix", "capella", "deneb", "electra"]
 
 class WireError(Exception):
     pass
-
-
-LIGHT_CLIENT_METHODS = (
-    "light_client_bootstrap",
-    "light_client_updates_by_range",
-    "light_client_optimistic_update",
-    "light_client_finality_update",
-)
-
-
-def light_client_unported(method: str) -> WireError:
-    return WireError(
-        f"{method}: the light-client server is not ported yet "
-        "(ROADMAP Queue 1 item 2.4)"
-    )
 
 
 class MessageCodec:
@@ -68,6 +52,30 @@ class MessageCodec:
         cls = self.ns.block_types.get(fork)
         if cls is None:
             raise WireError(f"fork {fork} not in preset")
+        return cls.decode(data[1:])
+
+    # -- fork-tagged light-client containers --------------------------------
+
+    def _enc_lc(self, obj, kind: str) -> bytes:
+        from ..light_client.types import light_client_types
+
+        for name in reversed(_FORK_ORDER):
+            if name not in self.ns.state_types:
+                continue
+            cls = getattr(
+                light_client_types(self.spec.preset.name, name), kind
+            )
+            if isinstance(obj, cls):
+                return bytes([_FORK_ORDER.index(name)]) + cls.encode(obj)
+        raise WireError(f"unknown {kind} container {type(obj)}")
+
+    def _dec_lc(self, data: bytes, kind: str):
+        from ..light_client.types import light_client_types
+
+        fork = _FORK_ORDER[data[0]]
+        if fork not in self.ns.state_types:
+            raise WireError(f"fork {fork} not in preset")
+        cls = getattr(light_client_types(self.spec.preset.name, fork), kind)
         return cls.decode(data[1:])
 
     # -- gossip ------------------------------------------------------------
@@ -153,8 +161,15 @@ class MessageCodec:
             raw = struct.pack(">QQH", start, count, n) + b"".join(
                 struct.pack(">H", int(c)) for c in cols
             )
-        elif method in LIGHT_CLIENT_METHODS:
-            raise light_client_unported(method)
+        elif method == "light_client_bootstrap":
+            raw = bytes(payload)  # the trusted block root
+        elif method == "light_client_updates_by_range":
+            start_period, count = payload
+            raw = struct.pack(">QQ", start_period, count)
+        elif method in (
+            "light_client_optimistic_update", "light_client_finality_update"
+        ):
+            raw = b""  # latest-update requests carry no body
         else:
             raise WireError(f"no codec for rpc {method}")
         return zlib.compress(raw)
@@ -190,8 +205,14 @@ class MessageCodec:
                 for i in range(n)
             ]
             return start, count, cols
-        if method in LIGHT_CLIENT_METHODS:
-            raise light_client_unported(method)
+        if method == "light_client_bootstrap":
+            return raw[:32]
+        if method == "light_client_updates_by_range":
+            return struct.unpack(">QQ", raw)
+        if method in (
+            "light_client_optimistic_update", "light_client_finality_update"
+        ):
+            return None
         raise WireError(f"no codec for rpc {method}")
 
     def encode_response(self, method: str, payload) -> bytes:
@@ -207,8 +228,25 @@ class MessageCodec:
             parts = [self.ns.DataColumnSidecar.encode(sc) for sc in payload]
             raw = b"".join(struct.pack(">I", len(p)) + p for p in parts)
             return zlib.compress(raw)
-        if method in LIGHT_CLIENT_METHODS:
-            raise light_client_unported(method)
+        if method == "light_client_bootstrap":
+            raw = b"" if payload is None else self._enc_lc(
+                payload, "LightClientBootstrap"
+            )
+            return zlib.compress(raw)
+        if method == "light_client_updates_by_range":
+            parts = [self._enc_lc(u, "LightClientUpdate") for u in payload]
+            raw = b"".join(struct.pack(">I", len(p)) + p for p in parts)
+            return zlib.compress(raw)
+        if method == "light_client_optimistic_update":
+            raw = b"" if payload is None else self._enc_lc(
+                payload, "LightClientOptimisticUpdate"
+            )
+            return zlib.compress(raw)
+        if method == "light_client_finality_update":
+            raw = b"" if payload is None else self._enc_lc(
+                payload, "LightClientFinalityUpdate"
+            )
+            return zlib.compress(raw)
         raise WireError(f"no codec for rpc response {method}")
 
     def decode_response(self, method: str, data: bytes):
@@ -234,6 +272,28 @@ class MessageCodec:
                 )
                 off += 4 + n
             return out
-        if method in LIGHT_CLIENT_METHODS:
-            raise light_client_unported(method)
+        if method == "light_client_updates_by_range":
+            raw = zlib.decompress(data)
+            out, off = [], 0
+            while off < len(raw):
+                (n,) = struct.unpack(">I", raw[off : off + 4])
+                out.append(
+                    self._dec_lc(raw[off + 4 : off + 4 + n], "LightClientUpdate")
+                )
+                off += 4 + n
+            return out
+        if method in (
+            "light_client_bootstrap",
+            "light_client_optimistic_update",
+            "light_client_finality_update",
+        ):
+            raw = zlib.decompress(data)
+            if not raw:
+                return None
+            kind = {
+                "light_client_bootstrap": "LightClientBootstrap",
+                "light_client_optimistic_update": "LightClientOptimisticUpdate",
+                "light_client_finality_update": "LightClientFinalityUpdate",
+            }[method]
+            return self._dec_lc(raw, kind)
         raise WireError(f"no codec for rpc response {method}")

@@ -6,9 +6,6 @@ plus the ``NetworkBeaconProcessor`` packaging
 ``Work`` item with ``process_individual`` AND ``process_batch`` closures so
 the scheduler can form attestation/aggregate batches for the device backend
 (``gossip_methods.rs:198,230``).
-
-The four light-client Req/Resp methods raise ``WireError`` until the port has
-the light-client server (ROADMAP Queue 1 item 2.4).
 """
 
 from __future__ import annotations
@@ -17,7 +14,6 @@ import time
 
 from ..beacon_processor.processor import Work, WorkType
 from ..loadshed import DEFAULT_SLOT_SECONDS, deadline_for
-from .codec import LIGHT_CLIENT_METHODS, light_client_unported
 from .transport import Topic
 
 
@@ -127,6 +123,13 @@ class Router:
             return self.svc.data_column_sidecars_by_range(
                 start_slot, count, columns
             )
-        if method in LIGHT_CLIENT_METHODS:
-            raise light_client_unported(method)
+        if method == "light_client_bootstrap":
+            return self.svc.light_client_bootstrap(payload)
+        if method == "light_client_updates_by_range":
+            start_period, count = payload
+            return self.svc.light_client_updates_by_range(start_period, count)
+        if method == "light_client_optimistic_update":
+            return self.svc.light_client_optimistic_update()
+        if method == "light_client_finality_update":
+            return self.svc.light_client_finality_update()
         raise ValueError(f"unknown rpc method {method!r}")

@@ -392,3 +392,25 @@ class BeaconNodeService:
             )
         )
         return out
+
+    # -- light-client serving (rpc_methods.rs LightClient* protocols) -------
+
+    def light_client_bootstrap(self, block_root: bytes):
+        """LightClientBootstrap by trusted block root; None when the root's
+        state is not held (the codec encodes an empty response)."""
+        return self.chain.light_client_cache.bootstrap(bytes(block_root))
+
+    def light_client_updates_by_range(
+        self, start_period: int, count: int
+    ) -> list:
+        """Best full update per sync-committee period in
+        [start_period, start_period + count)."""
+        return self.chain.light_client_cache.updates_by_range(
+            int(start_period), int(count)
+        )
+
+    def light_client_optimistic_update(self):
+        return self.chain.light_client_cache.latest_optimistic
+
+    def light_client_finality_update(self):
+        return self.chain.light_client_cache.latest_finality

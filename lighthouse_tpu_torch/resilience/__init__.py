@@ -25,7 +25,9 @@ Canonical fault domains:
   (``epoch_engine.engine.process_epoch_on_device``; stage ``epoch.sweep``),
   whose fallback, the numpy epoch path, lives outside the ladder;
 * ``kzg_supervisor()``   — batched KZG cell verification
-  (``kzg/engine.py``; stage ``kzg.cell_batch_verify``), failing closed.
+  (``kzg/engine.py``; stage ``kzg.cell_batch_verify``), failing closed;
+* ``lc_supervisor()``    — batched light-client update verification
+  (``light_client/engine.py``; stage ``lc.batch_verify``), failing closed.
 """
 
 from __future__ import annotations
@@ -86,6 +88,19 @@ def kzg_supervisor() -> BackendSupervisor:
     ladder (fail closed). With the engine on a card the ladder has no host
     rung: a card's fault is never handed to the CPU."""
     return get_supervisor(KZG_DOMAIN)
+
+
+LC_DOMAIN = "lc_device"
+
+
+def lc_supervisor() -> BackendSupervisor:
+    """The fault domain guarding batched light-client update verification
+    (``light_client/engine.py``; injection stage ``lc.batch_verify`` with
+    rungs ``device_full`` / ``device_reduced``, and ``cpu_oracle`` only for
+    an engine on the CPU). Fails CLOSED: a session that cannot be verified on
+    ANY rung is reported unverified; with the engine on a card a card's
+    fault is never handed to the CPU."""
+    return get_supervisor(LC_DOMAIN)
 
 
 def health_snapshot() -> dict:

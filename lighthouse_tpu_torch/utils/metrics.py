@@ -333,6 +333,11 @@ EPOCH_MIRROR_BYTES = REGISTRY.gauge(
     "Device-resident bytes of the epoch-engine registry mirror columns, "
     "set at every (re)grow/full-gather (epoch_engine/mirror.py)",
 )
+LC_COMMITTEE_CACHE_BYTES = REGISTRY.gauge(
+    "lc_committee_cache_bytes",
+    "Device-resident bytes of the light-client per-period committee cache, "
+    "set at every cache rebuild (light_client/engine.py)",
+)
 KZG_TABLE_BYTES = REGISTRY.gauge(
     "kzg_table_bytes",
     "Device-resident bytes of the KZG cell-verification tables, set when "

@@ -6,9 +6,8 @@ and response) on harness-built objects (the reference's ``StateHarness``
 under a deneb minimal spec; each object carried to the port's types as SSZ
 bytes), the two codecs give equal bytes, each package decodes the other's
 bytes to objects of equal ``hash_tree_root``, and the same malformed inputs
-raise ``WireError`` in both. The light-client methods, which the port does
-not serve yet, raise ``WireError`` in the port's codec and router. Exact
-equality everywhere.
+raise ``WireError`` in both. The four light-client methods are held
+byte-equal in ``test_torch_lc_serving.py``. Exact equality everywhere.
 """
 
 import zlib
@@ -25,8 +24,6 @@ from lighthouse_tpu.network.transport import Topic as RTopic
 from lighthouse_tpu.testing import StateHarness
 from lighthouse_tpu.types import containers as r_con
 from lighthouse_tpu.types.spec import minimal_spec as r_minimal
-from lighthouse_tpu_torch.network import router as p_router
-from lighthouse_tpu_torch.network.codec import LIGHT_CLIENT_METHODS
 from lighthouse_tpu_torch.network.codec import MessageCodec as PCodec
 from lighthouse_tpu_torch.network.codec import WireError as PWireError
 from lighthouse_tpu_torch.network.transport import Status as PStatus
@@ -238,22 +235,3 @@ def test_malformed_inputs_raise_wire_error_in_both(codecs, i):
     with pytest.raises(PWireError):
         getattr(pc, name)(*args)
 
-
-@pytest.mark.parametrize("method", LIGHT_CLIENT_METHODS)
-def test_light_client_methods_raise_until_ported(codecs, method):
-    """Divergence from the reference (ROADMAP Queue 3): the port has no
-    light-client server yet, so its codec refuses the four light-client
-    methods in every direction and its router refuses to serve them; the
-    reference encodes them."""
-    rc, pc = codecs
-    payload = {"light_client_bootstrap": b"\x01" * 32,
-               "light_client_updates_by_range": (1, 2)}.get(method)
-    raw = rc.encode_request(method, payload)
-    for call, args in (("encode_request", (method, payload)), ("decode_request", (method, raw)),
-                       ("encode_response", (method, None)),
-                       ("decode_response", (method, zlib.compress(b"")))):
-        with pytest.raises(PWireError, match="ROADMAP Queue 1 item 2.4"):
-            getattr(pc, call)(*args)
-    router = p_router.Router(type("Svc", (), {})())
-    with pytest.raises(PWireError, match="not ported yet"):
-        router.on_rpc(method, payload, "peer")

@@ -275,10 +275,10 @@ def test_empty_batch_is_false(registry):
 
 def test_port_imports_neither_jax_nor_reference(registry, batch):
     """A fresh interpreter imports the port (its KZG stack and PeerDAS
-    modules, loadshed and the network included), verifies on the CPU, runs
-    one numpy epoch boundary, serves a status from a node on the chain,
-    loads the port's own trusted setup, and has loaded no jax and nothing of
-    lighthouse_tpu."""
+    modules, loadshed, the network and the light client included), verifies
+    on the CPU, runs one numpy epoch boundary, serves a status from a node on
+    the chain (its light-client server cache in place), loads the port's own
+    trusted setup, and has loaded no jax and nothing of lighthouse_tpu."""
     raw, _, _ = registry
     ix, msg, sb = batch[1]
     code = f"""
@@ -296,6 +296,8 @@ import lighthouse_tpu_torch.kzg, lighthouse_tpu_torch.kzg.engine, lighthouse_tpu
 import lighthouse_tpu_torch.beacon_chain.data_columns, lighthouse_tpu_torch.beacon_chain.peerdas
 import lighthouse_tpu_torch.loadshed, lighthouse_tpu_torch.network
 import lighthouse_tpu_torch.network.gossipsub, lighthouse_tpu_torch.network.boot_node
+import lighthouse_tpu_torch.light_client, lighthouse_tpu_torch.light_client.engine
+import lighthouse_tpu_torch.ops.lc, lighthouse_tpu_torch.ops.lc.verify
 from lighthouse_tpu_torch.network import BeaconNodeService, LoopbackTransport
 from lighthouse_tpu_torch import epoch_engine, state_transition
 from lighthouse_tpu_torch.beacon_chain import BeaconChain
@@ -314,6 +316,9 @@ ok = ok and state.slot == spec.preset.SLOTS_PER_EPOCH + 1
 lighthouse_tpu_torch.bls.set_backend("oracle")
 chain = BeaconChain(spec, state)
 ok = ok and chain.head.slot == state.slot and len(chain.pubkey_cache) == 16
+lc = lighthouse_tpu_torch.light_client
+ok = ok and isinstance(chain.light_client_cache, lc.LightClientServerCache)
+ok = ok and lc.engine.LcEngine(spec, "cpu").committee_size == spec.preset.SYNC_COMMITTEE_SIZE
 node = BeaconNodeService("a", spec, state, LoopbackTransport(), device="cpu")
 ok = ok and node.local_status().head_slot == state.slot
 BeaconProcessor(synchronous=True).shutdown()
