@@ -140,7 +140,40 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      for session equal to the host loop on the oracle; with both device
      rungs of ``lc_device`` faulted every session False and no host rung;
      one batch under the profiler.
-Phases 8-10 and 12-16 each set the counts to 0 before and read them after,
+ 17. the slasher (``lighthouse_tpu_torch.slasher``; its span sweep is
+     PyTorch on the card, no hand kernel): (a) the reference bench's cell
+     (``bench.py:1893``): a span store of 2^20 validators x 64 epochs, one
+     warm-up and 16 timed ticks of 16,384 honest (cur-1, cur) votes, 4
+     ticks an epoch, then 4 injected surrounds and 4 double votes: 4 of 4
+     each flagged, no flag on the honest stream, the store on the card with
+     no demotion; checks/s, ms per tick, the byte bound, busy and idle share
+     over one profiled epoch, plane and peak bytes; (b) the same at
+     Lighthouse's default window of 4096 epochs (32 GiB of planes at the
+     reference's 8 bytes a cell), 4 timed ticks; (c) at 2^15 x 64, 8 ticks of
+     random pairs (window rolls, out-of-window, invalid and padding pairs,
+     tag conflicts): the card's planes and per-pair outputs equal the numpy
+     twin's and the CPU sweep's, bit for bit; (d) the fault drill: corruption
+     injected into ``slasher.sweep`` demotes the store, the checkpoint and
+     journal replay give the twin's planes, probation puts them back on the
+     card; (e) a ``SlasherService`` (window 64) on node A's chain observers:
+     64 attestations of one committee through the gossip batch path, one
+     member voting twice for one target: exactly one ``AttesterSlashing`` in
+     its pool, naming that member, its signatures verified on the card.
+ 18. node C restarts from disk: a ``BeaconChain`` over ``HotColdDB`` with
+     ``LevelStore`` hot and cold stores in a temporary directory, on phase
+     13's anchor and pubkey cache, imports phase 12's block (fork choice
+     persisted at the import barrier), takes phase 13's gossip attestations
+     and phase 17's slashing into its op pool and persists it; phase 17's
+     slasher checkpoints into C's hot store. Every object is dropped and the
+     stores reopened; a pubkey cache seeded from the registry's affine points,
+     ``recover_node_state`` and ``make_slasher(store.hot)``: head, fork-choice
+     nodes and weights, checkpoints and pool equal C's before the crash, 64
+     gossip attestations (one poisoned) verify on the card through the
+     recovered chain, and a double vote after the restart against a vote
+     from before it is convicted by the restored slasher, its sweep on the
+     card. Reports the import's store write, the WAL bytes, the recovery's
+     parts and the slasher checkpoint's bytes and ms.
+Phases 8-10, 12-16 and 17-18 each set the counts to 0 before and read them after,
 as phase 5 does, and hold any shape they launched that phase 4 did not see
 (phase 14's column and batch shapes, phase 15's and phase 16's must all be
 among the shapes checked before them: phase 3's warm-up runs one column
@@ -159,7 +192,9 @@ validators (the parity boundary at 2^18), its block carrying 262,658 keys in
 11 sets; the chain over the same 2^20 registry; PeerDAS at mainnet geometry
 (nothing cut); the network over the same chain and a second 2^20-validator
 node (depth cut: NET_BLOCKS new blocks synced); the light client at the
-mainnet sync-committee size (512) and the reference bench's 16 sessions.
+mainnet sync-committee size (512) and the reference bench's 16 sessions;
+the slasher at 2^20 validators, windows of 64 (the reference bench's) and
+4096 epochs (Lighthouse's default); a restarted 2^20-validator node.
 The last line of stdout is the result object; the line before it the
 kernel table; before that the card's name and power limit.
 """
@@ -171,6 +206,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -1062,6 +1098,7 @@ class _ImportSplit:
         patch(chain, "_justified_balances", span("justified", chain._justified_balances))
         patch(chain.fork_choice, "on_block", span("on_block", chain.fork_choice.on_block))
         patch(chain, "recompute_head", span("head", chain.recompute_head))
+        patch(chain, "persist_fork_choice", span("persist", chain.persist_fork_choice))
 
     def restore(self) -> None:
         self._patches.undo()
@@ -1090,6 +1127,7 @@ class _ImportSplit:
             "justified_balances_ms": ms("justified"), "on_block_ms": ms("on_block"),
             "block_attestations_to_fork_choice_ms": (t["head"][0] - t["on_block"][1]) * 1e3,
             "recompute_head_ms": ms("head"), "import_block_ms": ms("import_block"),
+            "persist_ms": ms("persist") if "persist" in t else 0.0,
             "sets": v["sets"], "keys": v["keys"],
         }
 
@@ -1532,6 +1570,7 @@ def chain_phase(spec, anchor, raw, sk0: int, sync_idx, block, bad, dev_cache, de
     _clean(bsnap, bls_sup.snapshot(), None, "bls_device")
     out["firehose"] = {"verified": fst.verified, "wall_s": fh_s,
                        "verified_att_per_s": fst.verified / fh_s, "batches": fst.batches_formed}
+    out["gossip_atts"] = valid  # node C's pool in phase 18
     rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
     out["peak_rss_bytes"] = rss
     log(f"chain firehose: {fst.verified} of {len(valid)} verified, 0 dropped, in {fh_s * 1e3:.2f} ms "
@@ -2967,15 +3006,603 @@ def lc_phase(spec, chain, net, sk0: int, dev, rng, seed: int) -> dict:
 
 
 # --------------------------------------------------------------------------------------
+# The slasher (phase 17)
+# --------------------------------------------------------------------------------------
+
+SLASHER_PAIRS = 16384  # honest (cur-1, cur) votes a tick (bench.py:1893 _inner_slasher)
+SLASHER_TICKS = 16  # timed ticks of the bench cell (its BENCH_SLASHER_TICKS default)
+SLASHER_DEPLOY_TICKS = 4  # timed ticks of the deployment window
+SLASHER_TICKS_PER_EPOCH = 4
+SLASHER_HISTORY = 64  # the bench cell's window (its BENCH_SLASHER_HISTORY default)
+SLASHER_DEPLOY_HISTORY = 4096  # Lighthouse's --slasher-history-length default (config.rs:11)
+SLASHER_SMALL = 1 << 15  # validators of the parity stream and the fault drill
+HBM_BYTES_PER_S = 3.35e12  # one H100's memory rate
+
+
+def _slasher_cell(n_val: int, history: int, iters: int, dev, first: int = 0) -> dict:
+    """The reference bench's slasher cell (``bench.py:1893 _inner_slasher``,
+    its seed and traffic) on the card: a ``SpanStore`` over ``n_val``
+    validators and a ``history``-epoch window; one warm-up tick, then
+    ``iters`` timed ticks of SLASHER_PAIRS honest (cur-1, cur) votes (tag
+    1), SLASHER_TICKS_PER_EPOCH ticks an epoch, so the window rolls inside
+    the timed ticks; then its injected ticks: 4 surrounds, then 4 double
+    votes; then one epoch of honest ticks under the profiler (the sweeps on
+    the calling thread, so the trace holds their ops). The pairs are
+    drawn before the clock starts (the reference draws them inside it).
+    The timed ticks are ticks ``first`` to ``first + iters - 1`` of that
+    traffic (the reference's are 0 to iters - 1, the first one repeating
+    the warm-up's epoch): ``first=1`` puts one roll in 4 timed ticks.
+    Gates: 4 of 4 surrounds and doubles flagged, no flag on the honest
+    stream, the store on the card (``mode == "device"``) with no demotion."""
+    import numpy as np
+    import torch
+
+    from lighthouse_tpu_torch.resilience import slasher_supervisor
+    from lighthouse_tpu_torch.slasher.engine import SpanStore
+
+    rng = np.random.default_rng(0x51A5)
+    pairs = min(n_val, SLASHER_PAIRS)
+
+    def honest(t):
+        cur = 100 + t // SLASHER_TICKS_PER_EPOCH
+        vidx = rng.choice(n_val, size=pairs, replace=False).astype(np.int64)
+        return (vidx, np.full(pairs, cur - 1, np.int64), np.full(pairs, cur, np.int64),
+                np.ones(pairs, np.uint32), cur)
+
+    warm = honest(0)
+    timed = [honest(t) for t in range(first, first + iters)]
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    store = SpanStore(history, use_device=True, device=dev)
+    store.ensure_capacity(n_val)
+    store.apply(*warm[:4], warm[4])
+    bind_s = time.perf_counter() - t0
+    plane_bytes = sum(p.numel() * p.element_size() for p in store.dev)
+    full = store.n_pad * history * 16  # every cell read once and written once (8 B each way)
+    ms, false_pos, data_bytes, epoch, rolls = [], 0, 0, store.epoch, 0
+    for vidx, src, tgt, vh, cur in timed:
+        rolls += cur > epoch
+        t = time.perf_counter()
+        res = store.apply(vidx, src, tgt, vh, cur)  # numpy out: the tick has ended on the card
+        ms.append((time.perf_counter() - t) * 1e3)
+        false_pos += int(res["min_flag"].sum() + res["max_flag"].sum() + res["dbl_flag"].sum())
+        # what this tick's data needs: the whole planes when the window rolls,
+        # else the touched rows; each pair's 21 B in and 11 B out
+        data_bytes += (full if cur > epoch else np.unique(vidx).size * history * 16) + pairs * 32
+        epoch = cur
+    cur = 100 + (first + iters) // SLASHER_TICKS_PER_EPOCH + 1
+    inj = rng.choice(n_val, size=8, replace=False).astype(np.int64)
+    res = store.apply(
+        np.concatenate([inj, inj[:4]]),
+        np.concatenate([np.full(8, cur - 2, np.int64), np.full(4, cur - 3, np.int64)]),
+        np.concatenate([np.full(8, cur - 1, np.int64), np.full(4, cur, np.int64)]),
+        np.concatenate([np.ones(8, np.uint32), np.full(4, 2, np.uint32)]), cur)
+    surround = int(res["min_flag"][8:].sum())
+    res = store.apply(inj[4:], np.full(4, cur - 2, np.int64), np.full(4, cur - 1, np.int64),
+                      np.full(4, 3, np.uint32), cur)
+    double = int(res["dbl_flag"].sum())
+    prof = [honest(4 * (cur - 99) + k) for k in range(SLASHER_TICKS_PER_EPOCH)]
+    sup = slasher_supervisor()
+    deadline, sup.config.deadline_s = sup.config.deadline_s, 0  # the sweep on this thread
+    try:
+        _, prof_ms, dev_us, ops = _profiled(lambda: [store.apply(*p[:4], p[4]) for p in prof])
+    finally:
+        sup.config.deadline_s = deadline
+    peak = torch.cuda.max_memory_allocated(dev)
+    st = store.stats()
+    if st["mode"] != "device" or st["demotions"] or st["backend"] != "device":
+        raise RuntimeError(f"slasher cell {n_val}x{history}: the store left the card: {st}")
+    if surround != 4 or double != 4 or false_pos:
+        raise RuntimeError(f"slasher cell {n_val}x{history}: surrounds {surround} of 4, doubles "
+                           f"{double} of 4, {false_pos} flags on the honest stream")
+    busy = sum(dev_us.values()) / 1e3
+    spread = _spread(ms)
+    out = {
+        "validators": n_val, "history_length": history, "pairs_per_tick": pairs,
+        "ticks_timed": iters, "ticks_per_epoch": SLASHER_TICKS_PER_EPOCH, "window_rolls": rolls,
+        "slashable_checks_per_s": pairs * iters / (sum(ms) / 1e3), "ms_per_tick": spread,
+        "ms_per_tick_mean": sum(ms) / iters, "ms": ms, "bind_s": bind_s,
+        "plane_bytes": plane_bytes, "peak_bytes": peak, "baseline_bytes": base,
+        "cell_peak_bytes": peak - base, "bound_ms": full / HBM_BYTES_PER_S * 1e3,
+        "bound_data_ms": data_bytes / iters / HBM_BYTES_PER_S * 1e3,
+        "profiled_ticks": len(prof), "profiled_ms": prof_ms, "busy_ms": busy,
+        "busy_ms_per_tick": busy / len(prof), "aten_ops": ops,
+        "idle_share": 1 - busy / prof_ms if busy else None,
+        "device_ms_by_name": {k[:80]: v / 1e3 for k, v in
+                              sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]},
+        "detection": {"injected_surround": 4, "flagged_surround": surround,
+                      "injected_double": 4, "flagged_double": double,
+                      "false_positives": false_pos},
+        "span": st,
+    }
+    del store
+    torch.cuda.empty_cache()
+    log(f"slasher cell {n_val} x {history}: {out['slashable_checks_per_s']:.2f} checks/s; ms per tick "
+        f"{json.dumps(spread)} over {iters} ticks ({rolls} window rolls; "
+        f"bind + first tick {bind_s:.2f} s); byte bound {out['bound_ms']:.4f} ms a tick with every "
+        f"plane read and written, {out['bound_data_ms']:.4f} ms for this run's data (rolls + touched "
+        f"rows); profiled epoch of {len(prof)} ticks: busy {busy:.3f} of {prof_ms:.3f} ms, idle share "
+        f"{out['idle_share']}, {ops} aten ops; planes {plane_bytes} B, allocator peak {peak} B "
+        f"({peak - base} B over the {base} B held before); surrounds {surround}/4, doubles "
+        f"{double}/4, {false_pos} false positives; mode {st['mode']}, demotions {st['demotions']}")
+    return out
+
+
+def _slasher_pairs(rng, v: int, cur: int, n: int, p: int):
+    """Random pairs as the port's tests draw them: rows past the registry,
+    votes out of the window and reversed, tags from a small set (conflicts
+    on shared cells), the all-ones tag, a fifth invalid (padding)."""
+    import numpy as np
+
+    vidx = rng.integers(0, v + 3, p).astype(np.int64)
+    tgt = rng.integers(cur - n - 3, cur + 3, p).astype(np.int64)
+    src = tgt - rng.integers(-1, 6, p)
+    vh = rng.integers(1, 6, p).astype(np.uint32)
+    vh[rng.random(p) < 0.05] = 0xFFFFFFFF
+    return vidx, src, tgt, vh, rng.random(p) > 0.2
+
+
+def _slasher_parity(dev, rng) -> dict:
+    """Phase 17 (c): at SLASHER_SMALL x SLASHER_HISTORY, 8 ticks of
+    ``_slasher_pairs`` (a roll past the whole window among them): the card's
+    planes and per-pair outputs equal ``sweep_numpy``'s and the torch sweep
+    on the CPU (in tiles of 1000 rows), bit for bit."""
+    import numpy as np
+
+    from lighthouse_tpu_torch.slasher import kernels
+    from lighthouse_tpu_torch.slasher.engine import empty_planes_np, sweep_numpy
+
+    v, n, p = SLASHER_SMALL, SLASHER_HISTORY, SLASHER_PAIRS
+    host = list(empty_planes_np(v, n))
+    card, cpu = kernels.empty_planes(v, n, dev), kernels.empty_planes(v, n, "cpu")
+    epoch, cur, deltas, flags = 35, 40, [], [0, 0, 0]
+    t0 = time.time()
+    for step in range(8):
+        args = _slasher_pairs(rng, v, cur, n, p)
+        delta = cur - epoch
+        twin = sweep_numpy(*host, delta, *args, cur, n)
+        a = kernels.sweep_(card, delta, *args, cur, n=n)
+        b = kernels.sweep_(cpu, delta, *args, cur, n=n, rows=1000)
+        got_card = (*kernels.planes_from_device(card), *(x.cpu().numpy() for x in a))
+        got_cpu = (*kernels.planes_from_device(cpu), *(x.numpy() for x in b))
+        for i, (w, c, h) in enumerate(zip(twin, got_card, got_cpu)):
+            w = np.asarray(w)
+            if not (c.dtype == w.dtype and np.array_equal(c, w) and np.array_equal(h, w)):
+                raise RuntimeError(f"slasher parity: output {i} at tick {step}: card/CPU != numpy twin")
+        for j in range(3):
+            flags[j] += int(np.asarray(twin[5 + j]).sum())
+        host, epoch = list(twin[:3]), cur
+        deltas.append(delta)
+        cur += int(rng.integers(0, 3)) if step != 4 else n + 7
+    out = {"validators": v, "history_length": n, "pairs_per_tick": p, "ticks": 8,
+           "deltas": deltas, "min_flags": flags[0], "max_flags": flags[1],
+           "dbl_flags": flags[2], "s": time.time() - t0}
+    log(f"slasher parity at {v} x {n}: 8 ticks of {p} pairs (window rolls {deltas}; {flags[0]} "
+        f"surrounding, {flags[1]} surrounded, {flags[2]} double-vote candidates): the card's planes "
+        f"and five per-pair outputs == sweep_numpy == the torch sweep on the CPU, bit for bit; "
+        f"{out['s']:.1f} s")
+    return out
+
+
+def _slasher_fault_drill(dev, rng) -> dict:
+    """Phase 17 (d): a span store on the card (host checkpoint every 3
+    sweeps) beside the numpy twin over 7 ticks; ``slasher.sweep`` injected
+    with corruption at the 5th: the store demotes (``mode == "host"``, one
+    demotion, the supervisor's numpy fallback noted), its checkpoint plus
+    the replayed journal give the twin's planes, and with probation cut to
+    0 s the next tick puts the planes back on the card. Per-pair outputs
+    equal the twin's throughout. Never timed."""
+    import numpy as np
+
+    from lighthouse_tpu_torch.resilience import injector, slasher_supervisor
+    from lighthouse_tpu_torch.slasher.engine import SpanStore
+
+    sup = slasher_supervisor()
+    sup.reset()
+    store = SpanStore(SLASHER_HISTORY, use_device=True, device=dev, checkpoint_every=3)
+    twin = SpanStore(SLASHER_HISTORY, use_device=False)
+    prev = sup.config.probation_s
+    modes = []
+    injector.install("stage=slasher.sweep;mode=corrupt;at=5;times=1")
+    try:
+        for t in range(7):
+            cur = 40 + t // 2
+            vidx = rng.choice(SLASHER_SMALL, size=SLASHER_SMALL // 8, replace=False).astype(np.int64)
+            tgt = rng.integers(cur - 8, cur + 1, vidx.size).astype(np.int64)
+            src = tgt - rng.integers(0, 4, vidx.size)
+            vh = rng.integers(1, 4, vidx.size).astype(np.uint32)
+            if t == 5:
+                sup.config.probation_s = 0.0  # this tick is probation's probe
+            a = store.apply(vidx, src, tgt, vh, cur)
+            b = twin.apply(vidx, src, tgt, vh, cur)
+            if any(not np.array_equal(a[k], b[k]) for k in a):
+                raise RuntimeError(f"slasher fault drill: tick {t}'s outputs != the twin's")
+            modes.append(store.mode)
+            if t in (4, 6) and any(not np.array_equal(x, y)
+                                   for x, y in zip(store.planes(), twin.planes())):
+                raise RuntimeError(f"slasher fault drill: planes != the twin's after tick {t}")
+    finally:
+        sup.config.probation_s = prev
+        injector.clear()
+    snap = sup.snapshot()
+    st = store.stats()
+    if modes != ["device"] * 4 + ["host", "device", "device"] or st["demotions"] != 1 \
+            or st["promotions"] != 1 or snap["fallback_calls"] < 1:
+        raise RuntimeError(f"slasher fault drill: modes {modes}, {st}, supervisor {snap}")
+    sup.reset()
+    out = {"modes": modes, "span": st, "supervisor": snap}
+    log(f"slasher fault drill at {SLASHER_SMALL} x {SLASHER_HISTORY}: corruption injected at sweep 5 "
+        f"-> modes {modes}; demotions {st['demotions']}, promotions {st['promotions']}, checkpoints "
+        f"{st['checkpoints']}; planes and outputs == the numpy twin's throughout; supervisor "
+        f"{json.dumps(snap)}")
+    return out
+
+
+def _slasher_types(ns):
+    """The engine's container types for electra attestations."""
+    import types
+
+    return types.SimpleNamespace(IndexedAttestation=ns.IndexedAttestationElectra,
+                                 AttesterSlashing=ns.AttesterSlashingElectra)
+
+
+def _committee_votes(spec, chain, sk0: int, votes):
+    """Single-member electra attestations of committee 0 at the head slot,
+    signed by the oracle: ``votes`` is [(position in the committee,
+    beacon_block_root)], all with the head epoch's target. Returns (the
+    attestations, the committee's validator indices)."""
+    import numpy as np
+
+    from lighthouse_tpu_torch import state_transition as st
+    from lighthouse_tpu_torch.oracle import ciphersuite as cs
+    from lighthouse_tpu_torch.types.containers import AttestationData, Checkpoint, for_preset
+    from lighthouse_tpu_torch.types.helpers import compute_signing_root, get_domain
+
+    ns = for_preset(spec.preset.name)
+    state = chain.head.state
+    slot, epoch = int(state.slot), st.get_current_epoch(spec, state)
+    committee = st.get_beacon_committee(spec, state, slot, 0)
+    start = spec.start_slot(epoch)
+    target = chain.head.root if slot == start else bytes(st.get_block_root(spec, state, epoch))
+    domain = get_domain(spec, state, spec.DOMAIN_BEACON_ATTESTER, epoch=epoch)
+    cbits = np.zeros(spec.preset.MAX_COMMITTEES_PER_SLOT, dtype=bool)
+    cbits[0] = True
+    out, msgs = [], {}
+    for pos, root in votes:
+        data = AttestationData(slot=slot, index=0, beacon_block_root=root,
+                               source=state.current_justified_checkpoint,
+                               target=Checkpoint(epoch=epoch, root=target))
+        if root not in msgs:
+            msgs[root] = cs.hash_to_g2(compute_signing_root(data, domain))
+        bits = np.zeros(committee.size, dtype=bool)
+        bits[pos] = True
+        out.append(ns.AttestationElectra(aggregation_bits=bits, data=data, committee_bits=cbits.copy(),
+                                         signature=_sign_all(msgs[root], [sk0 + int(committee[pos])])[0]))
+    return out, [int(v) for v in committee]
+
+
+def slasher_node_phase(spec, chain, sk0: int, dev) -> tuple:
+    """Phase 17 (e): a ``SlasherService`` (window SLASHER_HISTORY, the engine
+    on the card) on node A's chain observers; 64 single attestations of
+    committee 0 at A's head through the chain's gossip batch path: 63
+    members vote the head, and member 0 votes the head's parent too, for the
+    same target. After ``tick`` the op pool holds exactly one
+    ``AttesterSlashing``, naming member 0, whose two signatures verify on the
+    card; the honest votes give none. Returns (measurements, the slasher,
+    its pool, the committee, A's head epoch)."""
+    from lighthouse_tpu_torch import slasher
+    from lighthouse_tpu_torch.op_pool import OperationPool
+    from lighthouse_tpu_torch.ops.bls import fused_mul as fm
+    from lighthouse_tpu_torch.types.containers import for_preset
+
+    ns = for_preset(spec.preset.name)
+    runs, out = {}, {}
+    head, parent = chain.head.root, bytes(chain._blocks[chain.head.root].message.parent_root)
+    t = time.time()
+    atts, committee = _committee_votes(spec, chain, sk0, [(j, head) for j in range(63)] + [(0, parent)])
+    out["fixture_s"] = time.time() - t
+    sl = slasher.make_slasher(None, _slasher_types(ns),
+                              slasher.SlasherConfig(history_length=SLASHER_HISTORY), device=dev)
+    pool = OperationPool(spec, ns.Attestation)
+    svc = slasher.SlasherService(chain, sl, pool)
+    chain.attestation_observers.append(svc.attestation_observed)
+    chain.block_observers.append(svc.block_observed)
+    try:
+        fm.reset_counts()
+        t = time.perf_counter()
+        res = chain.verify_unaggregated_attestations(atts)
+        _sync(dev)
+        out["gossip_ms"] = (time.perf_counter() - t) * 1e3
+        runs["slasher_gossip"] = _read_counts("slasher gossip")
+        if [isinstance(v, Exception) for _, v in res] != [False] * len(atts):
+            raise RuntimeError("slasher: a gossip attestation was rejected")
+        epoch = int(atts[0].data.target.epoch)
+        t = time.perf_counter()
+        stats = svc.tick(current_epoch=epoch)
+        out["tick_ms"] = (time.perf_counter() - t) * 1e3
+    finally:
+        chain.attestation_observers.remove(svc.attestation_observed)
+        chain.block_observers.remove(svc.block_observed)
+    found = list(pool._attester_slashings)
+    common = [sorted(set(map(int, s.attestation_1.attesting_indices))
+                     & set(map(int, s.attestation_2.attesting_indices))) for s in found]
+    if common != [[committee[0]]] or stats["double_vote_slashings"] != 1 or stats["surround_slashings"]:
+        raise RuntimeError(f"slasher: slashings naming {common}, stats {stats}")
+    st = sl.stats()
+    if st["mode"] != "device" or st["demotions"]:
+        raise RuntimeError(f"slasher: the engine left the card: {st}")
+    fm.reset_counts()
+    items = [chain._attester_item_fast(a) for a in (found[0].attestation_1, found[0].attestation_2)]
+    if chain._batch_verify_items(items) is not True:
+        raise RuntimeError("slasher: the slashing's signatures did not verify")
+    runs["slasher_sigs"] = _read_counts("slasher slashing signatures")
+    out.update(stats=stats, span=st, slashing_validator=committee[0], runs=runs,
+               attestations=len(atts))
+    log(f"slasher on node A: {len(atts)} attestations of committee 0 at slot {int(atts[0].data.slot)} "
+        f"(built in {out['fixture_s']:.1f} s) through the gossip batch path in {out['gossip_ms']:.2f} ms, "
+        f"all verified; tick {out['tick_ms']:.2f} ms: {json.dumps(stats)}; the pool holds one "
+        f"AttesterSlashing naming validator {committee[0]}, its two signatures verified on the card; "
+        f"span {json.dumps(st)}; launches {json.dumps({k: v['by'] for k, v in runs.items()})}")
+    return out, sl, pool, committee, epoch
+
+
+def slasher_phase(spec, chain, sk0: int, dev, rng) -> tuple:
+    """Phase 17: the bench cell, the deployment window, parity on the card,
+    the fault drill and the slasher on node A (see the module docstring)."""
+    from lighthouse_tpu_torch import slasher
+
+    slasher.set_backend("device", device=dev)
+    t = time.time()
+    out = {"bench": _slasher_cell(1 << 20, SLASHER_HISTORY, SLASHER_TICKS, dev)}
+    out["bench"]["s"] = time.time() - t
+    t = time.time()
+    out["deploy"] = _slasher_cell(1 << 20, SLASHER_DEPLOY_HISTORY, SLASHER_DEPLOY_TICKS, dev, first=1)
+    out["deploy"]["s"] = time.time() - t
+    out["parity"] = _slasher_parity(dev, rng)
+    out["fault_drill"] = _slasher_fault_drill(dev, rng)
+    node, sl, pool, committee, epoch = slasher_node_phase(spec, chain, sk0, dev)
+    out["node"] = node
+    out["runs"] = node.pop("runs")
+    return out, (sl, pool, committee, epoch)
+
+
+# --------------------------------------------------------------------------------------
+# Restart from disk (phase 18)
+# --------------------------------------------------------------------------------------
+
+
+def _durable_store(root: str, owner: str):
+    from lighthouse_tpu_torch.store import HotColdDB
+    from lighthouse_tpu_torch.store.kv import LevelStore
+
+    return HotColdDB(hot=LevelStore(os.path.join(root, "chain.db"), owner=owner),
+                     cold=LevelStore(os.path.join(root, "freezer.db"), owner=owner))
+
+
+def _node_view(chain, pool) -> dict:
+    from lighthouse_tpu_torch.op_pool import persistence as pool_persist
+
+    fc = chain.fork_choice
+    return {"head": (chain.head.root, int(chain.head.slot)),
+            "nodes": [(n.root, n.parent, int(n.weight), n.best_child, n.best_descendant)
+                      for n in fc.proto.nodes],
+            "finalized": fc.store.finalized_checkpoint, "justified": fc.store.justified_checkpoint,
+            "pool": pool_persist.serialize_pool(pool),
+            "slashings": [type(s).encode(s) for s in pool._attester_slashings]}
+
+
+def restart_phase(spec, node_a, block, gossip, raw, sk0: int, box17: list, dev, root: str) -> dict:
+    """Phase 18: node C, a ``BeaconChain`` over ``HotColdDB`` with
+    ``LevelStore`` hot and cold stores under ``root``, anchored on node A's
+    anchor (phase 13's) with A's seeded pubkey cache: it imports phase 12's
+    ``block`` (fork choice persisted at the import barrier), takes phase
+    13's valid gossip attestations and phase 17's slashing into its op pool
+    and persists the pool; phase 17's slasher checkpoints into C's hot
+    store. Then every object is dropped and the stores reopened: a pubkey
+    cache seeded from the registry's affine points, ``recover_node_state``
+    and ``make_slasher(store.hot)``. Gates: head, fork-choice nodes and
+    weights, checkpoints and pool equal C's before the crash; a gossip batch
+    (one poisoned) verifies on the card through the recovered chain, exactly
+    the poisoned one rejected; a double vote after the restart against a vote
+    from before it is convicted by the restored slasher, its sweep on the
+    card. ``box17`` holds phase 17's (slasher, pool, committee, epoch), the
+    only reference to that slasher: the crash drops it."""
+    import gc
+
+    import numpy as np
+
+    from lighthouse_tpu_torch import slasher
+    from lighthouse_tpu_torch.beacon_chain import BeaconChain, ValidatorPubkeyCache
+    from lighthouse_tpu_torch.beacon_chain.recovery import recover_node_state
+    from lighthouse_tpu_torch.fork_choice import persistence as fc_persist
+    from lighthouse_tpu_torch.op_pool import OperationPool
+    from lighthouse_tpu_torch.op_pool import persistence as pool_persist
+    from lighthouse_tpu_torch.ops.bls import fused_mul as fm
+    from lighthouse_tpu_torch.store.kv import DBColumn
+    from lighthouse_tpu_torch.types.containers import for_preset
+    from lighthouse_tpu_torch.utils.slot_clock import ManualSlotClock
+
+    sl, slash_pool, committee, epoch17 = box17.pop()
+    ns = for_preset(spec.preset.name)
+    anchor = node_a.genesis_state
+    runs, out = {}, {}
+    slot1 = int(block.message.slot)
+
+    # before the crash
+    t = time.time()
+    store = _durable_store(root, "node_c")
+    chain = BeaconChain(spec, anchor, store=store, slot_clock=ManualSlotClock(slot1),
+                        pubkey_cache=node_a.pubkey_cache)
+    out["boot_s"] = time.time() - t
+    if not chain._durable:
+        raise RuntimeError("restart: node C's store is not durable")
+    fm.reset_counts()
+    root1, split, batches, _ = _timed_import(chain, block, dev)
+    runs["restart_import"] = _read_counts("restart: node C's import")
+    if len(batches) != 1 or batches[0]["ok"] is not True or chain.head.root != root1:
+        raise RuntimeError(f"restart: node C's import: bls batches {batches}")
+    out["import"] = split
+    pool = OperationPool(spec, ns.Attestation)
+    t = time.perf_counter()
+    for a in gossip:
+        pool.insert_attestation(a)
+    for s in slash_pool._attester_slashings:
+        pool.insert_attester_slashing(s)
+    out["pool_insert_ms"] = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    pool_persist.persist(store, pool)
+    out["pool_persist_ms"] = (time.perf_counter() - t) * 1e3
+    n_sl_atts = len(sl._atts)
+    t = time.perf_counter()
+    if not sl.persist(store=store.hot):
+        raise RuntimeError("restart: the slasher wrote no checkpoint")
+    out["slasher_persist_ms"] = (time.perf_counter() - t) * 1e3
+    out["slasher_checkpoint_bytes"] = len(store.hot.get(DBColumn.SlasherMeta, sl.PERSIST_KEY))
+    before = _node_view(chain, pool)
+    if len(before["slashings"]) != 1 or pool.num_attestations() != 1:
+        raise RuntimeError(f"restart: node C's pool: {pool.num_attestations()} attestation "
+                           f"variants, {len(before['slashings'])} slashings")
+    out["fork_choice_snapshot_bytes"] = len(store.get_meta(fc_persist.META_KEY))
+    out["pool_snapshot_bytes"] = len(before["pool"])
+
+    log(f"restart: node C over LevelStores booted on node A's anchor in {out['boot_s']:.2f} s; "
+        f"phase 12's block imported in {split['total_ms']:.2f} ms (store write "
+        f"{split['store_write_ms']:.2f} ms), fork choice persisted at the import barrier in "
+        f"{split['persist_ms']:.2f} ms ({out['fork_choice_snapshot_bytes']} B); pool of "
+        f"{len(gossip)} attestations and phase 17's slashing persisted in "
+        f"{out['pool_persist_ms']:.2f} ms ({out['pool_snapshot_bytes']} B); phase 17's slasher "
+        f"checkpoint {out['slasher_checkpoint_bytes']} B in {out['slasher_persist_ms']:.2f} ms")
+
+    # the crash: every object dropped, the files closed
+    for kv in (store.hot, store.cold):
+        kv.close()
+    out["wal_bytes"] = {f: os.path.getsize(os.path.join(root, f)) for f in ("chain.db", "freezer.db")}
+    log(f"restart: WAL {json.dumps(out['wal_bytes'])} B")
+    del chain, store, pool, sl, slash_pool, split, batches
+    gc.collect()
+
+    # the recovery
+    t0 = time.perf_counter()
+    cache = ValidatorPubkeyCache.from_affine(anchor, raw, device=dev)
+    _sync(dev)
+    cache_s = time.perf_counter() - t0
+    t = time.perf_counter()
+    store = _durable_store(root, "node_c")
+    reopen_s = time.perf_counter() - t
+    state_cls = type(anchor)
+    decode_s = {"state": 0.0, "block": 0.0}
+    patches = _Patches()
+
+    def timed_decode(cls, key):
+        real = cls.decode
+
+        def decode(data):
+            t1 = time.perf_counter()
+            try:
+                return real(data)
+            finally:
+                decode_s[key] += time.perf_counter() - t1
+        return decode
+
+    block_cls = type(block)
+    patches.set(state_cls, "decode", timed_decode(state_cls, "state"))
+    patches.set(block_cls, "decode", timed_decode(block_cls, "block"))
+    try:
+        chain, pool, report = recover_node_state(spec, anchor, store, slot_clock=ManualSlotClock(slot1),
+                                                 pubkey_cache=cache)
+    finally:
+        patches.undo()
+    after = _node_view(chain, pool)
+    for k in ("head", "nodes", "finalized", "justified", "pool", "slashings"):
+        if after[k] != before[k]:
+            raise RuntimeError(f"restart: the recovered {k} != node C's before the crash")
+    if not report["fork_choice_restored"] or report["truncated_bytes"] or chain.pubkey_cache is not cache:
+        raise RuntimeError(f"restart: recovery report {report}")
+    out["recovery"] = {
+        **{k: v for k, v in report.items() if k != "head_root"},
+        "pubkey_cache_s": cache_s, "reopen_s": reopen_s, "state_decode_s": decode_s["state"],
+        "block_decode_s": decode_s["block"], "total_s": cache_s + reopen_s + report["recovery_s"],
+    }
+
+    # gossip through the recovered chain, on the card
+    n_att, bad_pos = 64, 23
+    t = time.time()
+    from lighthouse_tpu_torch import state_transition as st
+
+    head_epoch = st.get_current_epoch(spec, chain.head.state)
+    atts, _, _ = _gossip_fixture(
+        spec, chain, sk0, n_att, 0, bad_pos,
+        target_root=bytes(st.get_block_root(spec, chain.head.state, head_epoch)))
+    out["gossip_fixture_s"] = time.time() - t
+    fm.reset_counts()
+    t = time.perf_counter()
+    res = chain.verify_unaggregated_attestations(atts)
+    _sync(dev)
+    out["gossip_ms"] = (time.perf_counter() - t) * 1e3
+    runs["restart_gossip"] = _read_counts("restart: gossip through the recovered chain")
+    rejected = [i for i, (_, v) in enumerate(res) if isinstance(v, Exception)]
+    if rejected != [bad_pos]:
+        raise RuntimeError(f"restart: gossip rejected {rejected}, poisoned {bad_pos}")
+
+    # the restored slasher convicts a post-restart double vote
+    t = time.perf_counter()
+    sl = slasher.make_slasher(store.hot, _slasher_types(ns),
+                              slasher.SlasherConfig(history_length=SLASHER_HISTORY), device=dev)
+    out["slasher_restore_ms"] = (time.perf_counter() - t) * 1e3
+    if len(sl._atts) != n_sl_atts or sl.span.mode != "device":
+        raise RuntimeError(f"restart: the slasher restored {len(sl._atts)} of {n_sl_atts} "
+                           f"attestations, mode {sl.span.mode}")
+    voter = committee[1]
+    att, _ = _committee_votes(spec, node_a, sk0, [(1, bytes(
+        node_a._blocks[node_a.head.root].message.parent_root))])
+    data = att[0].data
+    if int(data.target.epoch) != epoch17:
+        raise RuntimeError("restart: the double vote's target is not phase 17's")
+    sl.accept_attestation(ns.IndexedAttestationElectra(
+        attesting_indices=[voter], data=data, signature=att[0].signature))
+    t = time.perf_counter()
+    stats = sl.process_queued(epoch17)
+    out["slasher_tick_ms"] = (time.perf_counter() - t) * 1e3
+    new = [s for s in sl.get_attester_slashings()
+           if voter in set(map(int, s.attestation_1.attesting_indices))
+           & set(map(int, s.attestation_2.attesting_indices))]
+    st = sl.stats()
+    if stats["double_vote_slashings"] != 1 or len(new) != 1 or st["mode"] != "device" \
+            or st["demotions"] or st["sweeps"] != 1:
+        raise RuntimeError(f"restart: the post-restart double vote: {stats}, {len(new)} slashings, {st}")
+    out.update(slasher_stats=stats, slasher_span=st, runs=runs,
+               head_slot=int(chain.head.slot), fc_nodes=report["fc_nodes"])
+    rec = out["recovery"]
+    log(f"restart: every object dropped, stores reopened ({reopen_s:.2f} s: "
+        f"{rec['replayed_frames']} frames, {rec['replayed_records']} records replayed, "
+        f"{rec['truncated_bytes']} B truncated); pubkey cache seeded from affine points "
+        f"{cache_s:.2f} s; recover_node_state {rec['recovery_s']:.2f} s (state decode "
+        f"{rec['state_decode_s']:.2f} s, block decode {rec['block_decode_s']:.3f} s); head slot "
+        f"{out['head_slot']}, {rec['fc_nodes']} fork-choice nodes, weights, checkpoints and pool == "
+        f"node C's before the crash; {n_att} gossip attestations (fixture {out['gossip_fixture_s']:.1f} "
+        f"s) through the recovered chain in {out['gossip_ms']:.2f} ms, exactly the poisoned one "
+        f"rejected; slasher restored in {out['slasher_restore_ms']:.2f} ms ({n_sl_atts} "
+        f"attestations, mode device) and validator {voter}'s post-restart double vote convicted in "
+        f"{out['slasher_tick_ms']:.2f} ms; launches {json.dumps({k: v['by'] for k, v in runs.items()})}")
+    return out
+
+
+# --------------------------------------------------------------------------------------
 # Kernel checks
 # --------------------------------------------------------------------------------------
 
 
 SRC = "lighthouse_tpu_torch/csrc/fused_mul.cu"
-# phase 13's and 15's paths and the earlier path of the same shapes whose timed rows they share
+# phase 13's, 15's, 17's and 18's paths and the earlier path of the same shapes whose timed rows
+# they share
 CHAIN_TWINS = {"chain_import": "state_block", "chain_import2": "state_block",
                "chain_gossip": "gossip", "chain_firehose": "gossip",
-               "net_gossip": "gossip", "net_socket": "gossip"}
+               "net_gossip": "gossip", "net_socket": "gossip",
+               "slasher_gossip": "gossip", "slasher_sigs": "net_historical",
+               "restart_import": "state_block", "restart_gossip": "gossip"}
 REPLACES = {
     "K1": "lighthouse_tpu/ops/bls/pallas_kernels.py:587 (fused_mul, lazy=False -> _build_call:497)",
     "K3": "lighthouse_tpu/ops/bls/pallas_kernels.py:620 (execute_plan -> _build_call:497)",
@@ -3775,8 +4402,9 @@ def main() -> int:
     # 13. the beacon chain over the same registry
     t = time.time()
     ch, chain = chain_phase(espec, anchor, raw, sk0, sync_idx, sb_block, sb_bad, cache, dev, erng)
-    del anchor
+    del anchor  # the chain's genesis_state: node C's anchor in phase 18
     runs.update(ch.pop("runs"))
+    gossip13 = ch.pop("gossip_atts")
     chain_runs = ("chain_import", "chain_import_bad", "chain_import2", "chain_gossip",
                   "chain_aggregates", "chain_firehose")
     n_new = sum(exact_checks(runs[k]["log"], dev, gen, done) for k in chain_runs)
@@ -3819,7 +4447,7 @@ def main() -> int:
     # 16. a light client of the port's node, and the mass-service batch
     t = time.time()
     lm = lc_phase(espec, chain, net, sk0, dev, erng, args.seed)
-    del chain, net
+    del net
     runs.update(lm.pop("runs"))
     lc_runs = ("lc_serve", "lc_batch", "lc_tampered", "lc_mixed")
     unseen = sorted({s for k in lc_runs for s in runs[k]["log"] if s not in done})
@@ -3834,6 +4462,35 @@ def main() -> int:
         f"{json.dumps([round(x, 2) for x in lc_import_ms['phase13']])} ms, phase 15 "
         f"{json.dumps({k: round(v, 2) for k, v in lc_import_ms['phase15'].items()})} ms in all; "
         f"phase {lm['phase_s']:.1f} s")
+
+    # 17. the slasher: the bench cell, the deployment window, parity, the fault drill, node A's
+    t = time.time()
+    sm, sl17 = slasher_phase(espec, chain, sk0, dev, erng)
+    runs.update(sm.pop("runs"))
+    slasher_runs = ("slasher_gossip", "slasher_sigs")
+    unseen = sorted({s for k in slasher_runs for s in runs[k]["log"] if s not in done})
+    if unseen:
+        raise RuntimeError(f"slasher: shapes phase 4 did not check: {unseen}")
+    n_new = sum(exact_checks(runs[k]["log"], dev, gen, done) for k in slasher_runs)
+    sm["phase_s"] = time.time() - t
+    log(f"slasher: launches {json.dumps({k: runs[k]['by'] for k in slasher_runs})}; every shape "
+        f"checked in phase 4 ({n_new} new); phase {sm['phase_s']:.1f} s")
+
+    # 18. node C restarts from disk
+    t = time.time()
+    box17 = [sl17]
+    del sl17
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_node_c_") as node_dir:
+        rm = restart_phase(espec, chain, sb_block, gossip13, raw, sk0, box17, dev, node_dir)
+    del chain, gossip13
+    runs.update(rm.pop("runs"))
+    restart_runs = ("restart_import", "restart_gossip")
+    unseen = sorted({s for k in restart_runs for s in runs[k]["log"] if s not in done})
+    if unseen:
+        raise RuntimeError(f"restart: shapes phase 4 did not check: {unseen}")
+    n_new = sum(exact_checks(runs[k]["log"], dev, gen, done) for k in restart_runs)
+    rm["phase_s"] = time.time() - t
+    log(f"restart: every shape checked in phase 4 ({n_new} new); phase {rm['phase_s']:.1f} s")
 
     log(f"elapsed: {time.time() - t_start:.1f} s")
     table = []
@@ -3879,6 +4536,8 @@ def main() -> int:
                 "network": {**nm, "launches": {k: runs[k]["by"] for k in net_runs}},
                 "light_client": {**lm, "warmup": lc_warm, "import_ms": lc_import_ms,
                                  "launches": {k: runs[k]["by"] for k in lc_runs}},
+                "slasher": {**sm, "launches": {k: runs[k]["by"] for k in slasher_runs}},
+                "restart": {**rm, "launches": {k: runs[k]["by"] for k in restart_runs}},
             }, f, indent=1)
     print(card, flush=True)
     print(json.dumps({"kernels": table}), flush=True)

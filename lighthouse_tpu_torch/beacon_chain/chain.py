@@ -17,9 +17,10 @@ cpu_oracle rung follows only for a cache on the CPU); under ``"oracle"``
 through the generic ``SignatureSet`` arm. Epoch boundaries inside
 ``process_slots`` run in the port's ``epoch_engine``. PeerDAS column
 sampling (``enable_peerdas``) decides availability from columns verified by
-``beacon_chain.data_columns`` through the port's ``kzg`` engine. Paths that
-reach a module the port does not have yet raise ``NotImplementedError``
-naming its ROADMAP item: fork-choice persistence on a durable store (item 1). The mesh planner is None (the mesh is off; item 2).
+``beacon_chain.data_columns`` through the port's ``kzg`` engine. On a
+durable store (a WAL ``LevelStore``) every import persists fork choice
+(``fork_choice.persistence``); ``recovery.recover_node_state`` restarts a
+node from it. The mesh planner is None (the mesh is off; item 2).
 The light-client server cache (``light_client.LightClientServerCache``)
 rides the block-observer seam and persists its update archive in the hot
 store.
@@ -868,11 +869,10 @@ class BeaconChain:
     def persist_fork_choice(self) -> None:
         """Snapshot fork choice into the store's metadata bucket (the
         restart-from-disk anchor). Runs under the chain lock on the import
-        path; also the shutdown path's persistence hook. The port has no
-        fork-choice persistence yet."""
-        raise NotImplementedError(
-            "fork-choice persistence: ROADMAP Queue 1 item 1 (persistence and recovery)"
-        )
+        path; also the shutdown path's persistence hook."""
+        from ..fork_choice import persistence as fc_persist
+
+        fc_persist.persist(self.store, self.fork_choice)
 
     # -- attestations ---------------------------------------------------------------
 

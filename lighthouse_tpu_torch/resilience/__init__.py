@@ -24,6 +24,10 @@ Canonical fault domains:
 * ``epoch_supervisor()`` — the device epoch engine
   (``epoch_engine.engine.process_epoch_on_device``; stage ``epoch.sweep``),
   whose fallback, the numpy epoch path, lives outside the ladder;
+* ``slasher_supervisor()`` — the device-resident slasher span store
+  (``slasher.engine.SpanStore``; stage ``slasher.sweep``), whose fallback,
+  the numpy twin fed the host checkpoint and journal, lives outside the
+  ladder;
 * ``kzg_supervisor()``   — batched KZG cell verification
   (``kzg/engine.py``; stage ``kzg.cell_batch_verify``), failing closed;
 * ``lc_supervisor()``    — batched light-client update verification
@@ -75,6 +79,21 @@ EPOCH_DOMAIN = "epoch_device"
 def epoch_supervisor() -> BackendSupervisor:
     """The fault domain guarding the device epoch engine."""
     return get_supervisor(EPOCH_DOMAIN)
+
+
+SLASHER_DOMAIN = "slasher_device"
+
+
+def slasher_supervisor() -> BackendSupervisor:
+    """The fault domain guarding the device-resident slasher span store
+    (``slasher/engine.py``; injection stage ``slasher.sweep``): a faulted
+    sweep restores the host checkpoint + replays the pair journal on the
+    numpy twin, so demotion never drops evidence. Unlike the verify ladders
+    this demotion is no fail-closed rule: the numpy twin recomputes the same
+    planes exactly, and dropping evidence would weaken the slasher's
+    guarantee. It is loud: ``note_fallback(rung="numpy")`` on every such
+    call and ``demotions`` in the store's stats."""
+    return get_supervisor(SLASHER_DOMAIN)
 
 
 KZG_DOMAIN = "kzg_device"

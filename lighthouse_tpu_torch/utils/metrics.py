@@ -3,7 +3,8 @@
 
 The collectors (Counter, Gauge, Histogram, Registry) and only the metric
 families the port's modules record into (chain, beacon processor, store,
-caches, firehose, resilience, epoch engine, loadshed, network). Names follow Lighthouse's so
+caches, firehose, resilience and recovery, epoch engine, slasher, loadshed,
+network). Names follow Lighthouse's so
 dashboards transfer. Collectors are process-global and cheap enough for hot
 paths (an observe is a couple of dict ops); exposition is the Prometheus
 text format.
@@ -327,6 +328,45 @@ RESILIENCE_WATCHDOG_TIMEOUTS = REGISTRY.counter(
     "resilience_watchdog_timeouts_total",
     "Supervised calls that blew the watchdog deadline (hangs)",
     label_names=("domain", "stage"),
+)
+RESILIENCE_RECOVERIES = REGISTRY.counter(
+    "resilience_recoveries_total",
+    "Restart-from-disk recoveries (beacon_chain/recovery.py)",
+)
+RESILIENCE_RECOVERY_REPLAYED = REGISTRY.counter(
+    "resilience_recovery_replayed_records_total",
+    "WAL records replayed across restart-from-disk recoveries",
+)
+RESILIENCE_RECOVERY_TRUNCATED = REGISTRY.counter(
+    "resilience_recovery_truncated_bytes_total",
+    "Torn-tail bytes truncated by WAL replay across recoveries",
+)
+RESILIENCE_RECOVERY_TIMES = REGISTRY.histogram(
+    "resilience_recovery_seconds",
+    "Restart-from-disk recovery wall clock (store replay -> serving head)",
+)
+SLASHER_CHUNKS_UPDATED = REGISTRY.counter(
+    "slasher_chunks_updated_total",
+    "Slasher target-array rows updated (slasher/src/metrics.rs)",
+    label_names=("array",),
+)
+SLASHER_PAIRS_SWEPT = REGISTRY.counter(
+    "slasher_pairs_swept_total",
+    "(attestation x validator) pairs through the span-store sweep, by the "
+    "rung that served them (device / host)",
+    label_names=("backend",),
+)
+SLASHER_SURVEILLANCE_GAP = REGISTRY.counter(
+    "slasher_surveillance_gap_total",
+    "Evidence pairs the slasher engine SHED (intake overflow, exhausted "
+    "batch retries) — any nonzero rate is a surveillance gap, never a "
+    "silent drop",
+    label_names=("reason",),
+)
+SLASHER_SPAN_PLANE_BYTES = REGISTRY.gauge(
+    "slasher_span_plane_bytes",
+    "Device-resident bytes of the slasher span planes (min/max distance + "
+    "vote history), set at every capacity regrow/upload (slasher/engine.py)",
 )
 EPOCH_MIRROR_BYTES = REGISTRY.gauge(
     "epoch_mirror_bytes",

@@ -275,10 +275,12 @@ def test_empty_batch_is_false(registry):
 
 def test_port_imports_neither_jax_nor_reference(registry, batch):
     """A fresh interpreter imports the port (its KZG stack and PeerDAS
-    modules, loadshed, the network and the light client included), verifies
-    on the CPU, runs one numpy epoch boundary, serves a status from a node on
-    the chain (its light-client server cache in place), loads the port's own
-    trusted setup, and has loaded no jax and nothing of lighthouse_tpu."""
+    modules, loadshed, the network, the light client, the slasher, recovery,
+    fork revert and both persistence modules included), verifies on the CPU,
+    runs one numpy epoch boundary, serves a status from a node on the chain
+    (its light-client server cache in place), sweeps the slasher's span
+    store on the CPU, round-trips a fork-choice snapshot, loads the port's
+    own trusted setup, and has loaded no jax and nothing of lighthouse_tpu."""
     raw, _, _ = registry
     ix, msg, sb = batch[1]
     code = f"""
@@ -298,6 +300,10 @@ import lighthouse_tpu_torch.loadshed, lighthouse_tpu_torch.network
 import lighthouse_tpu_torch.network.gossipsub, lighthouse_tpu_torch.network.boot_node
 import lighthouse_tpu_torch.light_client, lighthouse_tpu_torch.light_client.engine
 import lighthouse_tpu_torch.ops.lc, lighthouse_tpu_torch.ops.lc.verify
+import lighthouse_tpu_torch.slasher, lighthouse_tpu_torch.slasher.engine
+import lighthouse_tpu_torch.slasher.kernels, lighthouse_tpu_torch.slasher.arrays
+import lighthouse_tpu_torch.beacon_chain.recovery, lighthouse_tpu_torch.beacon_chain.fork_revert
+import lighthouse_tpu_torch.fork_choice.persistence, lighthouse_tpu_torch.op_pool.persistence
 from lighthouse_tpu_torch.network import BeaconNodeService, LoopbackTransport
 from lighthouse_tpu_torch import epoch_engine, state_transition
 from lighthouse_tpu_torch.beacon_chain import BeaconChain
@@ -322,6 +328,13 @@ ok = ok and lc.engine.LcEngine(spec, "cpu").committee_size == spec.preset.SYNC_C
 node = BeaconNodeService("a", spec, state, LoopbackTransport(), device="cpu")
 ok = ok and node.local_status().head_slot == state.slot
 BeaconProcessor(synchronous=True).shutdown()
+sl = lighthouse_tpu_torch.slasher.make_slasher(None, chain.ns,
+    lighthouse_tpu_torch.slasher.SlasherConfig(history_length=64), backend="device", device="cpu")
+res = sl.span.apply(np.array([3]), np.array([4]), np.array([5]), np.array([1], np.uint32), 6)
+ok = ok and not res["min_flag"][0] and sl.span.mode == "device"
+blob = lighthouse_tpu_torch.fork_choice.persistence.serialize_fork_choice(chain.fork_choice)
+ok = ok and len(lighthouse_tpu_torch.fork_choice.persistence.restore_fork_choice(
+    spec, blob).proto.nodes) == 1
 setup = lighthouse_tpu_torch.kzg.load_trusted_setup()
 ok = ok and setup.field_elements_per_blob == 4096 and len(setup.g2_monomial) == 65
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
