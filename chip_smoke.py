@@ -173,7 +173,29 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      from before it is convicted by the restored slasher, its sweep on the
      card. Reports the import's store write, the WAL bytes, the recovery's
      parts and the slasher checkpoint's bytes and ms.
-Phases 8-10, 12-16 and 17-18 each set the counts to 0 before and read them after,
+ 19. the client surface: (a) a ``BeaconApiServer`` over node A (its chain,
+     op pool, network service and load monitor), a ``MetricsServer`` and a
+     ``ValidatorMonitor`` on committee 0 of the head slot; through the
+     port's ``BeaconNodeHttpClient`` (or ``urllib``), each timed and checked
+     against the chain: genesis, fork, finality checkpoints, the head
+     header, the head block by root, 16 validators by index and 16 by
+     pubkey, their balances, every committee of the head epoch (each
+     active validator once), the epoch's proposer duties, 64 validators'
+     attester duties, syncing, health and the spec; then 64 single-key
+     attestations of committee 0 at the head (one signed by another member)
+     posted to ``/eth/v1/beacon/pool/attestations``: 400 naming exactly
+     that one, as many verify calls as the reference bisection makes, on
+     the card, the other 63 in A's op pool, the aggregate served for their
+     data the naive pool's, ``validator_monitor_attestations_total`` 63;
+     (b) ``cli.run_bn`` in process on a minimal-preset electra interop
+     genesis of 64 keys two slots old (HTTP and metrics on ephemeral ports,
+     a datadir): the joined warm-up healthy; a block for the current slot
+     produced over ``/eth/v2/validator/blocks``, signed by the proposer's
+     interop key (oracle) and published as SSZ: 200, the head its root, one
+     bls batch on the card; a second ``bn`` checkpoint-synced from the first
+     (its anchor the first's finalized state); the first stopped and booted
+     again on its datadir to the same head slot, root and fork choice.
+Phases 8-10, 12-16 and 17-19 each set the counts to 0 before and read them after,
 as phase 5 does, and hold any shape they launched that phase 4 did not see
 (phase 14's column and batch shapes, phase 15's and phase 16's must all be
 among the shapes checked before them: phase 3's warm-up runs one column
@@ -181,7 +203,8 @@ verify and a batch at each n_pad a slot's required cells can give, 64 and
 128, a segment's single-key sets (two a block) through the bls API, one
 indexed item (a backfilled block, a sync-committee message), a
 contribution's three items, and light-client batches of 16 and 4 sessions
-over two 512-key committees).
+over two 512-key committees; phase 19's API batch runs the gossip path's
+shapes, and its CLI node's new shapes are checked exact after it).
 
 Full configuration: 2^20 validator pubkeys resident as the [N, 3, 25]
 cache (mainnet); main path batches of 64 aggregate signature sets, 512 keys
@@ -194,7 +217,9 @@ validators (the parity boundary at 2^18), its block carrying 262,658 keys in
 node (depth cut: NET_BLOCKS new blocks synced); the light client at the
 mainnet sync-committee size (512) and the reference bench's 16 sessions;
 the slasher at 2^20 validators, windows of 64 (the reference bench's) and
-4096 epochs (Lighthouse's default); a restarted 2^20-validator node.
+4096 epochs (Lighthouse's default); a restarted 2^20-validator node; the
+Beacon API over the 2^20 node (the CLI's own node at interop size: an
+interop genesis derives every key with the oracle).
 The last line of stdout is the result object; the line before it the
 kernel table; before that the card's name and power limit.
 """
@@ -3591,18 +3616,395 @@ def restart_phase(spec, node_a, block, gossip, raw, sk0: int, box17: list, dev, 
 
 
 # --------------------------------------------------------------------------------------
+# The client surface (phase 19)
+# --------------------------------------------------------------------------------------
+
+
+API_INDICES = 16  # validators asked for by index, and as many by pubkey
+API_DUTIES = 64  # validators whose attester duties are asked for
+API_ATTS = 64  # attestations posted, one poisoned
+API_OFFSET = 128  # committee 0's members the posted attestations come from (phase 17 took 0-62)
+CLI_VALIDATORS = 64  # the CLI node's interop registry (every key derived by the oracle)
+
+
+def _http(url: str, method: str = "GET", body=None, headers=None, timeout: float = 300.0):
+    """(status, body bytes, headers) of one request through ``urllib``."""
+    import urllib.error
+    import urllib.request
+
+    data = body if body is None or isinstance(body, bytes) else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers=headers or {"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read(), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), dict(e.headers)
+
+
+def api_phase(spec, chain, node_a, sk0: int, dev) -> dict:
+    """Phase 19 (a): the Beacon API over node A at full width. A
+    ``BeaconApiServer`` over A's chain, op pool, network service and load
+    monitor, a ``MetricsServer`` and a ``ValidatorMonitor`` on committee 0
+    of the head slot. Every request goes through the port's
+    ``BeaconNodeHttpClient`` or ``urllib``; each read is timed and checked
+    against the chain's own value. Then ``API_ATTS`` single-key
+    attestations of committee 0 at A's head, one signed by another member,
+    are posted: 400 naming exactly that one, the others in A's op pool, the
+    reference bisection's verify calls, on the card; the aggregate served
+    for their data is the naive pool's, and ``/metrics`` counts the
+    monitored attestations. Counts are set to 0 before the part and read
+    after it (``runs["api"]``)."""
+    import re
+
+    import numpy as np
+
+    from lighthouse_tpu_torch import state_transition as st
+    from lighthouse_tpu_torch.api_client import BeaconNodeHttpClient
+    from lighthouse_tpu_torch.beacon_chain.validator_monitor import ValidatorMonitor
+    from lighthouse_tpu_torch.http_api import BeaconApiServer
+    from lighthouse_tpu_torch.http_metrics import MetricsServer
+    from lighthouse_tpu_torch.ops.bls import fused_mul as fm
+    from lighthouse_tpu_torch.types.containers import for_preset
+
+    ns = for_preset(spec.preset.name)
+    out, ms, sizes = {}, {}, {}
+    state, head = chain.head.state, chain.head.root
+    slot, epoch = int(state.slot), st.get_current_epoch(spec, state)
+    n_val = len(state.validators)
+    committee = [int(v) for v in st.get_beacon_committee(spec, state, slot, 0)]
+    offset = min(API_OFFSET, len(committee) - API_ATTS)
+    if offset < 63:  # members phase 17 has voted with at this head
+        raise RuntimeError(f"api: committee 0 has {len(committee)} members")
+    target = head if slot == spec.start_slot(epoch) else bytes(st.get_block_root(spec, state, epoch))
+    bad_pos = 23
+    t = time.time()
+    atts, _, members = _gossip_fixture(spec, chain, sk0, API_ATTS, 0, bad_pos, offset=offset,
+                                       target_root=target)
+    # the HTTP wire carries the pre-electra container: committee 0 is data.index's
+    wire = [ns.Attestation(aggregation_bits=a.aggregation_bits, data=a.data, signature=a.signature)
+            for a in atts]
+    out["fixture_s"] = time.time() - t
+
+    monitor = ValidatorMonitor(chain, indices=committee)
+    server = BeaconApiServer(chain, op_pool=node_a.op_pool, network_service=node_a,
+                             load_monitor=node_a.load_monitor).start()
+    metrics = MetricsServer().start()
+    client = BeaconNodeHttpClient(server.url, timeout=300.0)
+    calls, verify_ms, patches = [], [], _Patches()
+    real_batch = chain._batch_verify_items
+
+    def counting(items):
+        calls.append(list(items))
+        t0 = time.perf_counter()
+        try:
+            return real_batch(items)
+        finally:
+            _sync(dev)
+            verify_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        return res
+
+    def check(ok, what):
+        if not ok:
+            raise RuntimeError(f"api: {what}")
+
+    fm.reset_counts()
+    try:
+        # reads, each against the chain's own value
+        g = timed("genesis", client.get_genesis)
+        gs = chain.genesis_state
+        check((g.genesis_time, g.genesis_validators_root) == (
+            int(gs.genesis_time), bytes(gs.genesis_validators_root)), "genesis")
+        fork = timed("fork", lambda: client.get_fork("head"))
+        check(fork == {"previous_version": bytes(state.fork.previous_version),
+                       "current_version": bytes(state.fork.current_version),
+                       "epoch": int(state.fork.epoch)}, f"fork {fork}")
+        fin = timed("finality_checkpoints", lambda: client.get_finality_checkpoints("head"))
+        check(fin == {k: {"epoch": int(c.epoch), "root": bytes(c.root)} for k, c in (
+            ("previous_justified", state.previous_justified_checkpoint),
+            ("current_justified", state.current_justified_checkpoint),
+            ("finalized", state.finalized_checkpoint))}, f"finality {fin}")
+        hh = timed("head_header", client.get_head_header)
+        check(hh == {"root": head, "slot": slot}, f"head header {hh}")
+        version, raw = timed("block_by_root", lambda: client.get_block_ssz("0x" + head.hex()))
+        sb = chain.get_signed_block(head)
+        check(version == spec.fork_name_at_slot(slot) and raw == type(sb).encode(sb), "block by root")
+        sizes["block_by_root"] = len(raw)
+        step = max(1, n_val // (2 * API_INDICES))
+        by_index = list(range(0, n_val, 2 * step))[:API_INDICES]
+        by_key = list(range(step, n_val, 2 * step))[:API_INDICES]
+        ids = [str(i) for i in by_index] + ["0x" + bytes(state.validators[i].pubkey).hex()
+                                            for i in by_key]
+        code, body, _ = timed("validators", lambda: _http(
+            server.url + "/eth/v1/beacon/states/head/validators?id=" + ",".join(ids)))
+        vals = json.loads(body)["data"] if code == 200 else None
+        check(vals is not None and [int(v["index"]) for v in vals] == by_index + by_key, "validators")
+        for v in vals:
+            i = int(v["index"])
+            check(int(v["balance"]) == int(state.balances[i]) and v["validator"]["pubkey"]
+                  == "0x" + bytes(state.validators[i].pubkey).hex()
+                  and int(v["validator"]["effective_balance"])
+                  == int(state.validators[i].effective_balance), f"validator {i}")
+        code, body, _ = timed("validator_balances", lambda: _http(
+            server.url + "/eth/v1/beacon/states/head/validator_balances?id="
+            + ",".join(map(str, by_index + by_key))))
+        check(code == 200 and [(int(b["index"]), int(b["balance"])) for b in json.loads(body)["data"]]
+              == [(i, int(state.balances[i])) for i in by_index + by_key], "validator balances")
+        code, body, _ = timed("committees", lambda: _http(
+            server.url + f"/eth/v1/beacon/states/head/committees?epoch={epoch}"))
+        check(code == 200, f"committees: HTTP {code}")
+        sizes["committees"] = len(body)
+        comms = json.loads(body)["data"]
+        per_slot = st.get_committee_count_per_slot(spec, state, epoch)
+        check(len(comms) == spec.preset.SLOTS_PER_EPOCH * per_slot, f"{len(comms)} committees")
+        seen = np.zeros(n_val, dtype=np.int64)
+        for c in comms:
+            want = st.get_beacon_committee(spec, state, int(c["slot"]), int(c["index"]))
+            got = np.asarray([int(v) for v in c["validators"]], dtype=np.int64)
+            check(np.array_equal(got, np.asarray(want, dtype=np.int64)),
+                  f"committee {c['slot']}/{c['index']}")
+            seen[got] += 1
+        active = np.asarray(st.get_active_validator_indices(state, epoch), dtype=np.int64)
+        check(int(seen.sum()) == active.size and (seen[active] == 1).all(),
+              "the epoch's committees do not cover each active validator once")
+        duties = timed("proposer_duties", lambda: client.get_proposer_duties(epoch))
+        check([d.slot for d in duties] == list(range(spec.start_slot(epoch),
+                                                     spec.start_slot(epoch + 1))), "proposer slots")
+        for d in duties:
+            want = st.get_beacon_proposer_index(spec, state, slot=d.slot)
+            check(d.validator_index == want and d.pubkey == bytes(state.validators[want].pubkey),
+                  f"proposer at slot {d.slot}")
+        asked = committee[:API_DUTIES // 2] + by_index + by_key
+        asked = list(dict.fromkeys(asked))[:API_DUTIES]
+        att_duties = timed("attester_duties", lambda: client.get_attester_duties(epoch, asked))
+        check(sorted(d.validator_index for d in att_duties) == sorted(asked), "attester duties")
+        for d in att_duties:
+            c = st.get_beacon_committee(spec, state, d.slot, d.committee_index)
+            check(int(c[d.validator_committee_index]) == d.validator_index
+                  and d.committee_length == len(c) and d.committees_at_slot == per_slot,
+                  f"attester duty of {d.validator_index}")
+        syncing = timed("syncing", client.get_syncing)
+        check(int(syncing["head_slot"]) == slot, f"syncing {syncing}")
+        code, _, _ = timed("health", lambda: _http(server.url + "/eth/v1/node/health"))
+        check(code in (200, 206), f"health: HTTP {code}")
+        code, body, _ = timed("spec", lambda: _http(server.url + "/eth/v1/config/spec"))
+        cfg = json.loads(body)["data"]
+        check(cfg["PRESET_BASE"] == spec.preset.name
+              and int(cfg["SLOTS_PER_EPOCH"]) == spec.preset.SLOTS_PER_EPOCH, f"spec {cfg}")
+
+        # the write: a poisoned batch through the chain's gossip batch path, on the card
+        patches.set(chain, "_batch_verify_items", counting)
+        body = [{"data": "0x" + ns.Attestation.encode(a).hex()} for a in wire]
+        code, reply, _ = timed("post_attestations", lambda: _http(
+            server.url + "/eth/v1/beacon/pool/attestations", "POST", body))
+        _sync(dev)
+        patches.undo()
+        failures = json.loads(json.loads(reply)["message"]) if code == 400 else None
+        check(failures is not None and [f["index"] for f in failures] == [bad_pos],
+              f"POST attestations: HTTP {code}, {reply[:300]!r}")
+        pos = {v: j for j, v in enumerate(members)}
+        order = [pos[it[0][0]] for it in calls[0]]
+        n_ref = 1 + _bisect_calls(order, {bad_pos})
+        check(len(calls) == n_ref, f"{len(calls)} verify calls, the reference bisection makes {n_ref}")
+        data_root = type(atts[0].data).hash_tree_root(atts[0].data)
+        valid = [offset + j for j in range(API_ATTS) if j != bad_pos]
+        entry = node_a.op_pool._attestations.get(data_root)
+        pooled = np.zeros(len(committee), dtype=bool)
+        for bits, _sig in (entry[1] if entry else ()):
+            pooled |= np.asarray(bits, dtype=bool)
+        check(pooled[valid].all() and not pooled[offset + bad_pos],
+              "the valid attestations are not in A's op pool")
+        agg = timed("aggregate_attestation", lambda: client.get_aggregate_attestation(data_root))
+        naive = chain.naive_aggregation_pool.get_by_root(data_root)
+        check(naive is not None and agg == ns.Attestation.encode(naive), "the served aggregate")
+        bits = np.asarray(ns.Attestation.decode(agg).aggregation_bits, dtype=bool)
+        check(bits[valid].all() and not bits[offset + bad_pos], "the aggregate's bits")
+        code, text, _ = timed("metrics", lambda: _http(metrics.url + "/metrics"))
+        m = re.search(rb"^validator_monitor_attestations_total (\S+)$", text, re.M)
+        check(code == 200 and m is not None and float(m.group(1)) == API_ATTS - 1,
+              f"validator_monitor_attestations_total {m.group(1) if m else None}")
+    finally:
+        patches.undo()
+        server.stop()
+        metrics.stop()
+        chain.attestation_observers.remove(monitor._on_attestation)
+        chain.block_observers.remove(monitor._on_block)
+    runs = {"api": _read_counts("api: the client surface over node A")}
+    out.update(ms=ms, bytes=sizes, verify_calls=len(calls), reference_calls=n_ref,
+               post_verify_ms=sum(verify_ms),
+               attestations=API_ATTS, offset=offset, validators=n_val, runs=runs,
+               monitor=monitor.epoch_summary(int(atts[0].data.target.epoch)))
+    log(f"api over node A ({n_val} validators, head slot {slot}): reads against the chain "
+        f"(ms) {json.dumps({k: round(v, 2) for k, v in ms.items()})}; committees of epoch "
+        f"{epoch} {sizes['committees']} B of JSON; POST of {API_ATTS} attestations (committee 0, "
+        f"members {offset}-{offset + API_ATTS - 1}, fixture {out['fixture_s']:.1f} s): 400 naming "
+        f"exactly the poisoned one ({bad_pos}), {len(calls)} verify calls (reference bisection: "
+        f"{n_ref}; {sum(verify_ms):.2f} ms of the POST inside them), the other {API_ATTS - 1} in A's op pool and the served aggregate; "
+        f"validator_monitor_attestations_total {API_ATTS - 1}; launches "
+        f"{json.dumps(runs['api']['by'])}")
+    return out
+
+
+def _close_stores(client) -> None:
+    for kv in (client.chain.store.hot, client.chain.store.cold):
+        kv.close()
+
+
+def cli_phase(dev, root: str) -> dict:
+    """Phase 19 (b): the CLI in process, at interop size. ``cli.run_bn`` on a
+    minimal-preset electra interop genesis of CLI_VALIDATORS keys, two slots
+    old, with HTTP and metrics on ephemeral ports and a datadir: the joined
+    warm-up healthy; a block for the current slot produced over
+    ``/eth/v2/validator/blocks``, signed with the proposer's interop key by
+    the oracle and published as SSZ: 200, the head that block's root, one
+    ``bls`` batch, on the card (counts set to 0 before the publish and read
+    after, ``runs["cli_publish"]``); a second node checkpoint-synced from
+    the first, its anchor the first one's finalized state; the first node
+    stopped and booted again on its datadir: fork choice restored, the head
+    slot and root as before the stop."""
+    from lighthouse_tpu_torch import bls, cli
+    from lighthouse_tpu_torch import state_transition as st
+    from lighthouse_tpu_torch.api_client import BeaconNodeHttpClient
+    from lighthouse_tpu_torch.oracle import ciphersuite as cs
+    from lighthouse_tpu_torch.ops.bls import fused_mul as fm
+    from lighthouse_tpu_torch.ssz import uint64
+    from lighthouse_tpu_torch.state_transition.genesis import interop_secret_keys
+    from lighthouse_tpu_torch.types.containers import SigningData
+    from lighthouse_tpu_torch.types.helpers import compute_signing_root, get_domain
+
+    out, runs = {}, {}
+    sps = 6  # the minimal preset's SECONDS_PER_SLOT
+    genesis_time = int(time.time()) - 2 * sps
+    forks = [a for f in ("altair", "bellatrix", "capella", "deneb", "electra")
+             for a in (f"--{f}-fork-epoch", "0")]
+    parser = cli.build_parser()
+
+    def argv(datadir, *extra):
+        return parser.parse_args([
+            "bn", "--preset", "minimal", "--interop-validators", str(CLI_VALIDATORS),
+            "--http-port", "0", "--datadir", os.path.join(root, datadir),
+            "--genesis-time", str(genesis_time), *forks, *extra])
+
+    def boot(args, what):
+        t0 = time.time()
+        c = cli.run_bn(args)
+        boot_s = time.time() - t0
+        warm = c.wait_for_warmup(600)
+        if not warm or warm["healthy"] is not True:
+            c.stop()
+            raise RuntimeError(f"cli: {what}: the warm-up reported {warm}")
+        if c.chain.pubkey_cache.device_array().device.type != dev.type:
+            raise RuntimeError(f"cli: {what}: the pubkey cache is not on {dev}")
+        return c, {"boot_s": boot_s, "warmup_s": warm["seconds"],
+                   "joined_s": time.time() - t0 - boot_s}
+
+    c1, out["boot"] = boot(argv("node1", "--metrics", "--metrics-port", "0"), "boot")
+    try:
+        code, _, _ = _http(c1.http_server.url + "/eth/v1/node/health")
+        if code not in (200, 206):
+            raise RuntimeError(f"cli: health HTTP {code}")
+        spec, ns = c1.chain.spec, c1.chain.ns
+        client = BeaconNodeHttpClient(c1.http_server.url, timeout=300.0)
+        slot = max(c1.chain.current_slot(), int(c1.chain.head.slot) + 1)
+        state = c1.chain.head.state.copy()
+        st.process_slots(spec, state, slot)
+        proposer = st.get_beacon_proposer_index(spec, state)
+        sk = interop_secret_keys(CLI_VALIDATORS)[proposer]
+        epoch = spec.compute_epoch_at_slot(slot)
+        randao_root = SigningData(object_root=uint64.hash_tree_root(epoch), domain=get_domain(
+            spec, state, spec.DOMAIN_RANDAO, epoch=epoch)).tree_root()
+        reveal = _sign_all(cs.hash_to_g2(randao_root), [sk])[0]
+        t0 = time.perf_counter()
+        version, raw = client.produce_block(slot, reveal)
+        out["produce_ms"] = (time.perf_counter() - t0) * 1e3
+        block = dict(ns.block_types[version].FIELDS)["message"].decode(raw)
+        domain = get_domain(spec, state, spec.DOMAIN_BEACON_PROPOSER, epoch=epoch)
+        signed = ns.block_types[version](message=block, signature=_sign_all(
+            cs.hash_to_g2(compute_signing_root(block, domain)), [sk])[0])
+        batches, patches = [], _Patches()
+        real_verify = bls.verify_signature_sets
+
+        def counting(sets, *, device=None):
+            sets = list(sets)
+            batches.append(len(sets))
+            return real_verify(sets, device=device)
+
+        patches.set(bls, "verify_signature_sets", counting)
+        fm.reset_counts()
+        t0 = time.perf_counter()
+        try:
+            code, reply, _ = _http(c1.http_server.url + "/eth/v1/beacon/blocks", "POST",
+                                   ns.block_types[version].encode(signed),
+                                   {"Content-Type": "application/octet-stream",
+                                    "Eth-Consensus-Version": version})
+            _sync(dev)
+        finally:
+            patches.undo()
+        out["publish_ms"] = (time.perf_counter() - t0) * 1e3
+        runs["cli_publish"] = _read_counts("cli: the block publish")
+        root_b = block.tree_root()
+        if code != 200 or c1.chain.head.root != root_b or len(batches) != 1:
+            raise RuntimeError(f"cli: publish HTTP {code} {reply[:200]!r}, head "
+                               f"{c1.chain.head.root.hex()[:16]} (block {root_b.hex()[:16]}), "
+                               f"bls batches {batches}")
+        out.update(slot=slot, fork=version, proposer=proposer, block_sets=batches[0])
+
+        # a second node from the first one's finalized state
+        finalized = c1.http_server._state("finalized")
+        c2, out["checkpoint_boot"] = boot(argv("node2", "--checkpoint-sync-url",
+                                               c1.http_server.url), "checkpoint sync")
+        try:
+            if c2.chain.genesis_state.tree_root() != finalized.tree_root():
+                raise RuntimeError("cli: the checkpoint anchor is not the first node's finalized state")
+        finally:
+            c2.stop()
+            _close_stores(c2)
+
+        # restart on the same datadir
+        before = (c1.chain.head.root, int(c1.chain.head.slot), len(c1.chain.fork_choice.proto.nodes))
+        t0 = time.time()
+        c1.stop()
+        _close_stores(c1)
+        out["stop_s"] = time.time() - t0
+        c1, out["restart"] = boot(argv("node1"), "restart")
+        after = (c1.chain.head.root, int(c1.chain.head.slot), len(c1.chain.fork_choice.proto.nodes))
+        if after != before:
+            raise RuntimeError(f"cli: after the restart head/slot/fork-choice nodes {after[1:]} "
+                               f"!= {before[1:]}")
+    finally:
+        c1.stop()
+        _close_stores(c1)
+    out["runs"] = runs
+    log(f"cli: bn booted in {out['boot']['boot_s']:.2f} s ({CLI_VALIDATORS} interop validators, "
+        f"electra, minimal; warm-up {out['boot']['warmup_s']} s, healthy); block at slot {slot} "
+        f"produced over HTTP in {out['produce_ms']:.2f} ms, published as SSZ in "
+        f"{out['publish_ms']:.2f} ms ({batches[0]} sets in one bls batch on the card, the head "
+        f"moved to it); checkpoint-synced node in {out['checkpoint_boot']['boot_s']:.2f} s (anchor "
+        f"== the finalized state); stop {out['stop_s']:.2f} s, restart "
+        f"{out['restart']['boot_s']:.2f} s to the same head and fork choice; launches "
+        f"{json.dumps(runs['cli_publish']['by'])}")
+    return out
+
+
+# --------------------------------------------------------------------------------------
 # Kernel checks
 # --------------------------------------------------------------------------------------
 
 
 SRC = "lighthouse_tpu_torch/csrc/fused_mul.cu"
-# phase 13's, 15's, 17's and 18's paths and the earlier path of the same shapes whose timed rows
+# phase 13's, 15's, 17's, 18's and 19's paths and the earlier path of the same shapes whose timed rows
 # they share
 CHAIN_TWINS = {"chain_import": "state_block", "chain_import2": "state_block",
                "chain_gossip": "gossip", "chain_firehose": "gossip",
                "net_gossip": "gossip", "net_socket": "gossip",
                "slasher_gossip": "gossip", "slasher_sigs": "net_historical",
-               "restart_import": "state_block", "restart_gossip": "gossip"}
+               "restart_import": "state_block", "restart_gossip": "gossip",
+               "api": "gossip", "cli_publish": "net_segment"}
 REPLACES = {
     "K1": "lighthouse_tpu/ops/bls/pallas_kernels.py:587 (fused_mul, lazy=False -> _build_call:497)",
     "K3": "lighthouse_tpu/ops/bls/pallas_kernels.py:620 (execute_plan -> _build_call:497)",
@@ -4447,6 +4849,8 @@ def main() -> int:
     # 16. a light client of the port's node, and the mass-service batch
     t = time.time()
     lm = lc_phase(espec, chain, net, sk0, dev, erng, args.seed)
+    node_a = net["a"]  # phase 19 serves the API over it
+    net["bus"].unregister("B")  # node B ends here: A's gossip reaches no one
     del net
     runs.update(lm.pop("runs"))
     lc_runs = ("lc_serve", "lc_batch", "lc_tampered", "lc_mixed")
@@ -4482,7 +4886,7 @@ def main() -> int:
     del sl17
     with tempfile.TemporaryDirectory(prefix="chip_smoke_node_c_") as node_dir:
         rm = restart_phase(espec, chain, sb_block, gossip13, raw, sk0, box17, dev, node_dir)
-    del chain, gossip13
+    del gossip13
     runs.update(rm.pop("runs"))
     restart_runs = ("restart_import", "restart_gossip")
     unseen = sorted({s for k in restart_runs for s in runs[k]["log"] if s not in done})
@@ -4491,6 +4895,26 @@ def main() -> int:
     n_new = sum(exact_checks(runs[k]["log"], dev, gen, done) for k in restart_runs)
     rm["phase_s"] = time.time() - t
     log(f"restart: every shape checked in phase 4 ({n_new} new); phase {rm['phase_s']:.1f} s")
+
+    # 19. the client surface: the Beacon API over node A, then the CLI at interop size
+    t = time.time()
+    am = api_phase(espec, chain, node_a, sk0, dev)
+    del chain, node_a
+    runs.update(am.pop("runs"))
+    unseen = sorted(s for s in runs["api"]["log"] if s not in done)
+    if unseen:
+        raise RuntimeError(f"api: shapes phase 4 did not check: {unseen}")
+    am["phase_s"] = time.time() - t
+    t = time.time()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as cli_dir:
+        cm = cli_phase(dev, cli_dir)
+    runs.update(cm.pop("runs"))
+    cm["phase_s"] = time.time() - t
+    api_runs = ("api", "cli_publish")
+    n_new = sum(exact_checks(runs[k]["log"], dev, gen, done) for k in api_runs)
+    log(f"client surface: launches {json.dumps({k: runs[k]['by'] for k in api_runs})}; the API's "
+        f"every shape checked in phase 4, {n_new} new shapes (the CLI node's) checked exact; "
+        f"api {am['phase_s']:.1f} s, cli {cm['phase_s']:.1f} s")
 
     log(f"elapsed: {time.time() - t_start:.1f} s")
     table = []
@@ -4538,6 +4962,8 @@ def main() -> int:
                                  "launches": {k: runs[k]["by"] for k in lc_runs}},
                 "slasher": {**sm, "launches": {k: runs[k]["by"] for k in slasher_runs}},
                 "restart": {**rm, "launches": {k: runs[k]["by"] for k in restart_runs}},
+                "client": {"api": am, "cli": cm,
+                           "launches": {k: runs[k]["by"] for k in api_runs}},
             }, f, indent=1)
     print(card, flush=True)
     print(json.dumps({"kernels": table}), flush=True)

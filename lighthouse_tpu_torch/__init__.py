@@ -18,7 +18,10 @@ arm, and ``epoch_engine`` runs every epoch boundary as a PyTorch sweep on the
 device. Over them the node's own layers are copied: ``beacon_chain`` (block
 import, the gossip batch paths and the firehose, with the validator pubkeys
 resident on the device), ``fork_choice``, ``store``, ``op_pool`` and the
-``beacon_processor`` scheduler.
+``beacon_processor`` scheduler. Over the chain runs the client surface:
+``client`` (the node builder), ``http_api`` (the Beacon API), ``cli``
+(``python -m lighthouse_tpu_torch bn``), ``http_metrics``, ``api_client``,
+``execution_layer`` and ``eth1``.
 
 Device rule: every entry point takes ``device=``; the default is CUDA, and
 with no CUDA device the default raises — nothing drops to the CPU unless the
@@ -27,3 +30,5 @@ package touches no device.
 """
 
 from .device import resolve_device  # noqa: F401
+
+__version__ = "0.2.0"

@@ -276,7 +276,9 @@ def test_empty_batch_is_false(registry):
 def test_port_imports_neither_jax_nor_reference(registry, batch):
     """A fresh interpreter imports the port (its KZG stack and PeerDAS
     modules, loadshed, the network, the light client, the slasher, recovery,
-    fork revert and both persistence modules included), verifies on the CPU,
+    fork revert, both persistence modules, the client, the CLI and its parser,
+    the Beacon API server and client, the metrics server, eth1 and the
+    execution layer's HTTP stack included), verifies on the CPU,
     runs one numpy epoch boundary, serves a status from a node on the chain
     (its light-client server cache in place), sweeps the slasher's span
     store on the CPU, round-trips a fork-choice snapshot, loads the port's
@@ -304,6 +306,11 @@ import lighthouse_tpu_torch.slasher, lighthouse_tpu_torch.slasher.engine
 import lighthouse_tpu_torch.slasher.kernels, lighthouse_tpu_torch.slasher.arrays
 import lighthouse_tpu_torch.beacon_chain.recovery, lighthouse_tpu_torch.beacon_chain.fork_revert
 import lighthouse_tpu_torch.fork_choice.persistence, lighthouse_tpu_torch.op_pool.persistence
+import lighthouse_tpu_torch.client, lighthouse_tpu_torch.cli, lighthouse_tpu_torch.http_api
+import lighthouse_tpu_torch.http_metrics, lighthouse_tpu_torch.api_client, lighthouse_tpu_torch.eth1
+import lighthouse_tpu_torch.execution_layer.auth, lighthouse_tpu_torch.execution_layer.http
+import lighthouse_tpu_torch.execution_layer.mock, lighthouse_tpu_torch.execution_layer.json_server
+import lighthouse_tpu_torch.beacon_chain.validator_monitor, lighthouse_tpu_torch.utils.system_health
 from lighthouse_tpu_torch.network import BeaconNodeService, LoopbackTransport
 from lighthouse_tpu_torch import epoch_engine, state_transition
 from lighthouse_tpu_torch.beacon_chain import BeaconChain
@@ -336,6 +343,8 @@ blob = lighthouse_tpu_torch.fork_choice.persistence.serialize_fork_choice(chain.
 ok = ok and len(lighthouse_tpu_torch.fork_choice.persistence.restore_fork_choice(
     spec, blob).proto.nodes) == 1
 setup = lighthouse_tpu_torch.kzg.load_trusted_setup()
+args = lighthouse_tpu_torch.cli.build_parser().parse_args(["bn", "--device", "cpu"])
+ok = ok and args.device == "cpu" and args.command == "bn"
 ok = ok and setup.field_elements_per_blob == 4096 and len(setup.g2_monomial) == 65
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "lighthouse_tpu" or m.startswith("lighthouse_tpu.")]
