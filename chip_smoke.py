@@ -195,7 +195,22 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      bls batch on the card; a second ``bn`` checkpoint-synced from the first
      (its anchor the first's finalized state); the first stopped and booted
      again on its datadir to the same head slot, root and fork choice.
-Phases 8-10, 12-16 and 17-19 each set the counts to 0 before and read them after,
+  20. the spec vectors on the card: (a) ``conformance.run_all(device=cuda)``
+     over tests/vectors (99 cases, nothing pruned): every case passes and
+     every file is consumed; the state families' bulk verifies and the bls
+     batches on the card, every epoch boundary on the device engine
+     (counted per fork, phase0 to electra, each above 0), the KZG families'
+     MSMs and cell batches on the card; bls_device, epoch_device and
+     kzg_device clean; each family timed with its launches; (b) phase 8's
+     block and its poisoned twin through ``bls.set_backend("native")`` (the
+     C++ backend, built with g++ beside phase 1): True and False, as on the
+     card, timed beside phase 8's device half; (c) ``python -m
+     lighthouse_tpu_torch boot-node --enr`` in a subprocess and two ``bn``
+     nodes in process (64 interop keys, on the card) given only its record
+     (``--boot-enrs``): each finds the other through discovery and peers
+     with it, and a block published to node 1 reaches node 2's head over
+     gossip (one bls batch on the card on each node).
+Phases 8-10, 12-16 and 17-20 each set the counts to 0 before and read them after,
 as phase 5 does, and hold any shape they launched that phase 4 did not see
 (phase 14's column and batch shapes, phase 15's and phase 16's must all be
 among the shapes checked before them: phase 3's warm-up runs one column
@@ -204,7 +219,8 @@ verify and a batch at each n_pad a slot's required cells can give, 64 and
 indexed item (a backfilled block, a sync-committee message), a
 contribution's three items, and light-client batches of 16 and 4 sessions
 over two 512-key committees; phase 19's API batch runs the gossip path's
-shapes, and its CLI node's new shapes are checked exact after it).
+shapes, and its CLI node's new shapes are checked exact after it; phase
+20's new shapes, the vectors' and the discovery nodes', likewise).
 
 Full configuration: 2^20 validator pubkeys resident as the [N, 3, 25]
 cache (mainnet); main path batches of 64 aggregate signature sets, 512 keys
@@ -2604,6 +2620,10 @@ def network_phase(spec, chain, kz, raw, sk0: int, dev, rng, seed: int, lc_a: lis
             t0 = time.perf_counter()
             for x in satts:
                 sa.publish_attestation(x)
+            # the router queues gossip unvalidated: at small size all 64 queue in well
+            # under 10 s on both packages' nodes, after a one-block range sync as after
+            # two (tests/test_torch_socket_network.py). A run that missed this wait (once,
+            # with NET_BLOCKS = 1) met the host's load at 2^20, not a network fault
             _wait_for(lambda: sb.processor.queue_len(WorkType.GossipAttestation) == n_att, 60.0,
                       "the socket gossip")
             t1 = time.perf_counter()
@@ -3855,6 +3875,40 @@ def _close_stores(client) -> None:
         kv.close()
 
 
+def _cli_block(c) -> tuple:
+    """A block for the current slot from CLI node ``c``: produced over
+    ``/eth/v2/validator/blocks`` with the proposer's randao reveal, signed
+    with its interop key by the oracle. Returns (signed block, fork, slot,
+    proposer, produce ms)."""
+    from lighthouse_tpu_torch import state_transition as st
+    from lighthouse_tpu_torch.api_client import BeaconNodeHttpClient
+    from lighthouse_tpu_torch.oracle import ciphersuite as cs
+    from lighthouse_tpu_torch.ssz import uint64
+    from lighthouse_tpu_torch.state_transition.genesis import interop_secret_keys
+    from lighthouse_tpu_torch.types.containers import SigningData
+    from lighthouse_tpu_torch.types.helpers import compute_signing_root, get_domain
+
+    spec, ns = c.chain.spec, c.chain.ns
+    client = BeaconNodeHttpClient(c.http_server.url, timeout=300.0)
+    slot = max(c.chain.current_slot(), int(c.chain.head.slot) + 1)
+    state = c.chain.head.state.copy()
+    st.process_slots(spec, state, slot)
+    proposer = st.get_beacon_proposer_index(spec, state)
+    sk = interop_secret_keys(CLI_VALIDATORS)[proposer]
+    epoch = spec.compute_epoch_at_slot(slot)
+    randao_root = SigningData(object_root=uint64.hash_tree_root(epoch), domain=get_domain(
+        spec, state, spec.DOMAIN_RANDAO, epoch=epoch)).tree_root()
+    reveal = _sign_all(cs.hash_to_g2(randao_root), [sk])[0]
+    t0 = time.perf_counter()
+    version, raw = client.produce_block(slot, reveal)
+    produce_ms = (time.perf_counter() - t0) * 1e3
+    block = dict(ns.block_types[version].FIELDS)["message"].decode(raw)
+    domain = get_domain(spec, state, spec.DOMAIN_BEACON_PROPOSER, epoch=epoch)
+    signed = ns.block_types[version](message=block, signature=_sign_all(
+        cs.hash_to_g2(compute_signing_root(block, domain)), [sk])[0])
+    return signed, version, slot, proposer, produce_ms
+
+
 def cli_phase(dev, root: str) -> dict:
     """Phase 19 (b): the CLI in process, at interop size. ``cli.run_bn`` on a
     minimal-preset electra interop genesis of CLI_VALIDATORS keys, two slots
@@ -3868,14 +3922,7 @@ def cli_phase(dev, root: str) -> dict:
     stopped and booted again on its datadir: fork choice restored, the head
     slot and root as before the stop."""
     from lighthouse_tpu_torch import bls, cli
-    from lighthouse_tpu_torch import state_transition as st
-    from lighthouse_tpu_torch.api_client import BeaconNodeHttpClient
-    from lighthouse_tpu_torch.oracle import ciphersuite as cs
     from lighthouse_tpu_torch.ops.bls import fused_mul as fm
-    from lighthouse_tpu_torch.ssz import uint64
-    from lighthouse_tpu_torch.state_transition.genesis import interop_secret_keys
-    from lighthouse_tpu_torch.types.containers import SigningData
-    from lighthouse_tpu_torch.types.helpers import compute_signing_root, get_domain
 
     out, runs = {}, {}
     sps = 6  # the minimal preset's SECONDS_PER_SLOT
@@ -3908,24 +3955,9 @@ def cli_phase(dev, root: str) -> dict:
         code, _, _ = _http(c1.http_server.url + "/eth/v1/node/health")
         if code not in (200, 206):
             raise RuntimeError(f"cli: health HTTP {code}")
-        spec, ns = c1.chain.spec, c1.chain.ns
-        client = BeaconNodeHttpClient(c1.http_server.url, timeout=300.0)
-        slot = max(c1.chain.current_slot(), int(c1.chain.head.slot) + 1)
-        state = c1.chain.head.state.copy()
-        st.process_slots(spec, state, slot)
-        proposer = st.get_beacon_proposer_index(spec, state)
-        sk = interop_secret_keys(CLI_VALIDATORS)[proposer]
-        epoch = spec.compute_epoch_at_slot(slot)
-        randao_root = SigningData(object_root=uint64.hash_tree_root(epoch), domain=get_domain(
-            spec, state, spec.DOMAIN_RANDAO, epoch=epoch)).tree_root()
-        reveal = _sign_all(cs.hash_to_g2(randao_root), [sk])[0]
-        t0 = time.perf_counter()
-        version, raw = client.produce_block(slot, reveal)
-        out["produce_ms"] = (time.perf_counter() - t0) * 1e3
-        block = dict(ns.block_types[version].FIELDS)["message"].decode(raw)
-        domain = get_domain(spec, state, spec.DOMAIN_BEACON_PROPOSER, epoch=epoch)
-        signed = ns.block_types[version](message=block, signature=_sign_all(
-            cs.hash_to_g2(compute_signing_root(block, domain)), [sk])[0])
+        ns = c1.chain.ns
+        signed, version, slot, proposer, out["produce_ms"] = _cli_block(c1)
+        block = signed.message
         batches, patches = [], _Patches()
         real_verify = bls.verify_signature_sets
 
@@ -3991,20 +4023,258 @@ def cli_phase(dev, root: str) -> dict:
     return out
 
 
+VECTOR_CASES = 99  # cases under tests/vectors (run_all on the CPU counts the same)
+VECTOR_FORKS = ("phase0", "altair", "bellatrix", "capella", "deneb", "electra")
+
+
+def conformance_phase(dev) -> dict:
+    """Phase 20 (a): ``conformance.run_all(device=dev)`` over the repo's
+    vector tree (nothing pruned): every case passes, every file consumed,
+    VECTOR_CASES cases; the bls, epoch and KZG backends on the card for the
+    run; every epoch boundary of the state families on the device engine,
+    counted per fork (each fork's count above 0, none on numpy); clean
+    ``bls_device``, ``epoch_device`` and ``kzg_device`` supervisors; counts
+    set to 0 before and read after (``runs["conformance"]``), the plain
+    version never run. Each family timed, with its launches by entry."""
+    from lighthouse_tpu_torch import conformance, epoch_engine, resilience
+    from lighthouse_tpu_torch.ops.bls import fused_mul as fm
+
+    sups = {"bls_device": resilience.bls_supervisor(),
+            "epoch_device": resilience.epoch_supervisor(),
+            "kzg_device": resilience.kzg_supervisor()}
+    snaps = {k: sup.snapshot() for k, sup in sups.items()}
+    fams, cur = {}, {}
+
+    def observer(event, fork, runner, n):
+        _sync(dev)
+        if event == "start":
+            cur.update(t=time.perf_counter(), by=dict(fm.launches_by), n=n)
+            return
+        f = fams.setdefault(runner, {"s": 0.0, "cases": 0, "forks": [],
+                                     "by": dict.fromkeys(fm.launches_by, 0)})
+        f["s"] += time.perf_counter() - cur["t"]
+        f["cases"] += n - cur["n"]
+        f["forks"].append(fork)
+        for k, v in fm.launches_by.items():
+            f["by"][k] += v - cur["by"][k]
+
+    epoch_engine.reset_boundary_counts()
+    fm.reset_counts()
+    t0 = time.perf_counter()
+    n = conformance.run_all(device=dev, observer=observer)
+    _sync(dev)
+    run_s = time.perf_counter() - t0
+    runs = {"conformance": _read_counts("conformance")}
+    if n != VECTOR_CASES:
+        raise RuntimeError(f"conformance: {n} cases ran, the vector tree holds {VECTOR_CASES}")
+    bounds = epoch_engine.boundary_counts()
+    per_fork = {f: bounds.get((f, "device"), 0) for f in VECTOR_FORKS}
+    off = {f"{k[0]}/{k[1]}": v for k, v in bounds.items() if k[1] != "device"}
+    if off or not all(per_fork.values()):
+        raise RuntimeError(f"conformance: epoch boundaries per fork {per_fork}, off the device {off}")
+    for name, sup in sups.items():
+        _clean(snaps[name], sup.snapshot(), None, name)
+    out = {"cases": n, "run_s": run_s, "boundaries": per_fork, "families": fams,
+           "launches": runs["conformance"]["by"], "runs": runs}
+    log(f"conformance: run_all(device={dev}) over tests/vectors: {n} cases passed, every file "
+        f"consumed, in {run_s:.2f} s; epoch boundaries on the device engine per fork "
+        f"{json.dumps(per_fork)}, none on numpy; bls_device, epoch_device and kzg_device clean; "
+        f"launches {json.dumps(runs['conformance']['by'])}")
+    for name, f in fams.items():
+        log(f"conformance family {name}: {f['cases']} cases over {len(f['forks'])} forks in "
+            f"{f['s']:.2f} s; launches {json.dumps(f['by'])}")
+    return out
+
+
+def native_phase(block, block_bad, device_verdicts, device_half) -> dict:
+    """Phase 20 (b): phase 8's block and its poisoned twin through
+    ``bls.set_backend("native")`` (the C++ backend built from the checkout
+    with g++): verdicts equal to the card's (True, False); each timed beside
+    phase 8's device half. The backend is restored after."""
+    from lighthouse_tpu_torch import bls
+
+    prev = bls.get_backend(), bls.get_device()
+    bls.set_backend("native")
+    try:
+        t0 = time.perf_counter()
+        ok = bls.verify_signature_sets(block)
+        t1 = time.perf_counter()
+        bad = bls.verify_signature_sets(block_bad)
+        t2 = time.perf_counter()
+    finally:
+        bls.set_backend(prev[0], device=prev[1])
+    if (ok, bad) != tuple(device_verdicts) or (ok, bad) != (True, False):
+        raise RuntimeError(f"native: verdicts {(ok, bad)} != the card's {device_verdicts}")
+    out = {"valid_ms": (t1 - t0) * 1e3, "poisoned_ms": (t2 - t1) * 1e3,
+           "device_half_ms": device_half}
+    log(f"native: phase 8's block ({len(block)} sets, "
+        f"{sum(len(x.signing_keys) for x in block)} compressed keys) through the C++ backend: "
+        f"True in {out['valid_ms']:.2f} ms, the poisoned twin False in {out['poisoned_ms']:.2f} ms "
+        f"(the card's device half {json.dumps(device_half)} ms); verdicts == the card's")
+    return out
+
+
+def _cli_digest() -> bytes:
+    """The fork digest of the CLI nodes' interop genesis (minimal, electra at
+    epoch 0): what their ENRs advertise and the boot node must too."""
+    from lighthouse_tpu_torch.state_transition.genesis import interop_genesis_state
+    from lighthouse_tpu_torch.types.helpers import compute_fork_digest
+    from lighthouse_tpu_torch.types.spec import minimal_spec
+
+    spec = minimal_spec(**{f"{f}_fork_epoch": 0 for f in VECTOR_FORKS[1:]})
+    state = interop_genesis_state(spec, CLI_VALIDATORS, 0)
+    return compute_fork_digest(bytes(state.fork.current_version),
+                               bytes(state.genesis_validators_root))
+
+
+def start_enr_boot_node(root: str):
+    """``python -m lighthouse_tpu_torch boot-node --enr`` in a subprocess on
+    127.0.0.1 (an ephemeral UDP port), advertising the CLI nodes' fork
+    digest; its log goes to ``root``. Returns the process (its ENR is the
+    first line of its stdout)."""
+    log_f = open(os.path.join(root, "boot_node.log"), "w")
+    return subprocess.Popen(
+        [sys.executable, "-m", "lighthouse_tpu_torch", "boot-node", "--enr", "--host",
+         "127.0.0.1", "--port", "0", "--fork-digest", _cli_digest().hex()],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=log_f, text=True)
+
+
+def _read_enr(proc, timeout: float) -> str:
+    import select
+
+    ready, _, _ = select.select([proc.stdout], [], [], timeout)
+    if not ready:
+        raise RuntimeError(f"discovery: the boot node printed no ENR in {timeout} s")
+    line = proc.stdout.readline()
+    if not line:
+        raise RuntimeError(f"discovery: the boot node exited ({proc.poll()})")
+    return json.loads(line)["enr"]
+
+
+def discovery_phase(dev, proc, root: str) -> dict:
+    """Phase 20 (c): two ``bn`` nodes (``cli.run_bn`` in process, as phase
+    19's: CLI_VALIDATORS interop keys, minimal, electra at epoch 0, on the
+    card) given only the ENR boot node's record (``--boot-enrs``, no
+    ``--boot-nodes``) and ephemeral TCP listeners. Node 2's startup lookup
+    finds node 1 and dials it; node 1's next lookup finds node 2; each
+    holds the other in its routing table and as a TCP peer. A block for
+    the current slot produced by node 1 and published to it as SSZ (its
+    bls batch on the card) reaches node 2's head over gossip (node 2's
+    batch on the card too): counts set to 0 before the publish, read after
+    node 2's head moved (``runs["discovery_publish"]``)."""
+    from lighthouse_tpu_torch import bls, cli
+    from lighthouse_tpu_torch.ops.bls import fused_mul as fm
+
+    out, runs = {}, {}
+    t0 = time.perf_counter()
+    enr = _read_enr(proc, 300.0)
+    out["boot_node_s"] = time.perf_counter() - t0  # beyond phase 20 (a) and (b)
+    genesis_time = int(time.time()) - 2 * 6  # two minimal slots old
+    forks = [a for f in VECTOR_FORKS[1:] for a in (f"--{f}-fork-epoch", "0")]
+    parser = cli.build_parser()
+
+    def boot(name):
+        t = time.perf_counter()
+        c = cli.run_bn(parser.parse_args([
+            "bn", "--preset", "minimal", "--interop-validators", str(CLI_VALIDATORS),
+            "--http-port", "0", "--listen-port", "0", "--boot-enrs", enr,
+            "--genesis-time", str(genesis_time), *forks]))
+        warm = c.wait_for_warmup(600)
+        if not warm or warm["healthy"] is not True:
+            c.stop()
+            raise RuntimeError(f"discovery: {name}: the warm-up reported {warm}")
+        return c, time.perf_counter() - t
+
+    nodes = []
+    try:
+        c1, out["node1_boot_s"] = boot("node 1")
+        nodes.append(c1)
+        c2, out["node2_boot_s"] = boot("node 2")
+        nodes.append(c2)
+        t1, t2 = (c.network_service.transport for c in (c1, c2))
+        t = time.perf_counter()
+        t1.discover_enr()  # node 1's next lookup: node 2 joined after node 1's first one
+        out["lookup_ms"] = (time.perf_counter() - t) * 1e3
+
+        def known(a, b):
+            return b.discovery.enr.node_id in {e.node_id for e in a.discovery.table.all_records()}
+
+        _wait_for(lambda: known(t1, t2) and known(t2, t1), 30.0, "each node in the other's table")
+        _wait_for(lambda: t1.local_addr in t2.peers() and t2.local_addr in t1.peers(), 30.0,
+                  "the two nodes peered")
+        out["peered_s"] = time.perf_counter() - t0
+        _wait_for(lambda: t1._topic_peers("beacon_block") and t2._topic_peers("beacon_block"),
+                  30.0, "block topic subscriptions")
+        signed, version, slot, _, out["produce_ms"] = _cli_block(c1)
+        root_b = signed.message.tree_root()
+        batches, patches = [], _Patches()
+        real_verify = bls.verify_signature_sets
+
+        def counting(sets, *, device=None):
+            sets = list(sets)
+            batches.append(len(sets))
+            return real_verify(sets, device=device)
+
+        patches.set(bls, "verify_signature_sets", counting)
+        fm.reset_counts()
+        t = time.perf_counter()
+        try:
+            code, reply, _ = _http(c1.http_server.url + "/eth/v1/beacon/blocks", "POST",
+                                   c1.chain.ns.block_types[version].encode(signed),
+                                   {"Content-Type": "application/octet-stream",
+                                    "Eth-Consensus-Version": version})
+            if code != 200:
+                raise RuntimeError(f"discovery: publish HTTP {code} {reply[:200]!r}")
+            _wait_for(lambda: c2.chain.head.root == root_b, 60.0, "node 2's head at the block")
+            _sync(dev)
+        finally:
+            patches.undo()
+        out["gossip_ms"] = (time.perf_counter() - t) * 1e3
+        runs["discovery_publish"] = _read_counts("discovery: the block publish and its gossip")
+        if c1.chain.head.root != root_b or len(batches) != 2:
+            raise RuntimeError(f"discovery: node 1 head {c1.chain.head.root.hex()[:16]}, bls "
+                               f"batches {batches} (node 1's import and node 2's)")
+        out.update(slot=slot, fork=version, batches=batches)
+    finally:
+        for c in nodes:
+            c.stop()
+    out["runs"] = runs
+    log(f"discovery: an ENR boot node in a subprocess (its record after {out['boot_node_s']:.2f} s "
+        f"beyond (a) and (b)); bn 1 booted in {out['node1_boot_s']:.2f} s and bn 2 in "
+        f"{out['node2_boot_s']:.2f} s (warm-ups joined) on --boot-enrs alone; node 1's second "
+        f"lookup {out['lookup_ms']:.1f} ms; each node in the other's routing table and peered "
+        f"{out['peered_s']:.2f} s after the boot node's record; a block at slot {slot} "
+        f"({version}) published to node 1 reached node 2's head over gossip in "
+        f"{out['gossip_ms']:.2f} ms (bls batches {batches}, node 1's and node 2's, on the card); "
+        f"launches {json.dumps(runs['discovery_publish']['by'])}")
+    return out
+
+
+def stop_process(proc) -> None:
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(10)
+
+
 # --------------------------------------------------------------------------------------
 # Kernel checks
 # --------------------------------------------------------------------------------------
 
 
 SRC = "lighthouse_tpu_torch/csrc/fused_mul.cu"
-# phase 13's, 15's, 17's, 18's and 19's paths and the earlier path of the same shapes whose timed rows
-# they share
+# phase 13's, 15's, 17's, 18's, 19's and 20's paths and the earlier path of the same shapes whose
+# timed rows they share
 CHAIN_TWINS = {"chain_import": "state_block", "chain_import2": "state_block",
                "chain_gossip": "gossip", "chain_firehose": "gossip",
                "net_gossip": "gossip", "net_socket": "gossip",
                "slasher_gossip": "gossip", "slasher_sigs": "net_historical",
                "restart_import": "state_block", "restart_gossip": "gossip",
-               "api": "gossip", "cli_publish": "net_segment"}
+               "api": "gossip", "cli_publish": "net_segment",
+               "conformance": "net_segment", "discovery_publish": "net_segment"}
 REPLACES = {
     "K1": "lighthouse_tpu/ops/bls/pallas_kernels.py:587 (fused_mul, lazy=False -> _build_call:497)",
     "K3": "lighthouse_tpu/ops/bls/pallas_kernels.py:620 (execute_plan -> _build_call:497)",
@@ -4391,7 +4661,23 @@ def main() -> int:
     dev = torch.device("cuda")
     t_start = time.time()
 
-    # 1. build
+    # 1. build (the native backend's g++ build runs beside, for phase 20)
+    import threading
+
+    from lighthouse_tpu_torch import native
+
+    native_build: dict = {}
+
+    def build_native():
+        t0 = time.time()
+        try:
+            native.load_bls()
+        except Exception as e:  # noqa: BLE001 — raised again in phase 20
+            native_build["error"] = e
+        native_build["s"] = time.time() - t0
+
+    native_thread = threading.Thread(target=build_native, name="native-build", daemon=True)
+    native_thread.start()
     t = time.time()
     fm.build(verbose=True)
     log(f"build: {time.time() - t:.2f} s")
@@ -4916,6 +5202,31 @@ def main() -> int:
         f"every shape checked in phase 4, {n_new} new shapes (the CLI node's) checked exact; "
         f"api {am['phase_s']:.1f} s, cli {cm['phase_s']:.1f} s")
 
+    # 20. the spec vectors on the card, native beside the device, ENR discovery
+    t = time.time()
+    native_thread.join()
+    if "error" in native_build:
+        raise native_build["error"]
+    log(f"native: g++ build of lighthouse_tpu_torch/native/bls12_381.cpp {native_build['s']:.2f} s "
+        f"(beside phases 1-19)")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_enr_") as enr_dir:
+        boot_proc = start_enr_boot_node(enr_dir)
+        try:
+            vm = conformance_phase(dev)
+            runs.update(vm.pop("runs"))
+            vm["native"] = native_phase(block, block_bad, (block_res[0], block_res[1]),
+                                        block_t["device_half_ms"])
+            dm = discovery_phase(dev, boot_proc, enr_dir)
+            runs.update(dm.pop("runs"))
+        finally:
+            stop_process(boot_proc)
+    vector_runs = ("conformance", "discovery_publish")
+    n_new = sum(exact_checks(runs[k]["log"], dev, gen, done) for k in vector_runs)
+    vm["phase_s"] = time.time() - t
+    log(f"spec vectors: launches {json.dumps({k: runs[k]['by'] for k in vector_runs})}; {n_new} "
+        f"new shapes (the vectors' and the discovery nodes') checked exact; phase "
+        f"{vm['phase_s']:.1f} s")
+
     log(f"elapsed: {time.time() - t_start:.1f} s")
     table = []
     for r in krows:
@@ -4964,6 +5275,8 @@ def main() -> int:
                 "restart": {**rm, "launches": {k: runs[k]["by"] for k in restart_runs}},
                 "client": {"api": am, "cli": cm,
                            "launches": {k: runs[k]["by"] for k in api_runs}},
+                "vectors": {**vm, "discovery": dm,
+                            "launches": {k: runs[k]["by"] for k in vector_runs}},
             }, f, indent=1)
     print(card, flush=True)
     print(json.dumps({"kernels": table}), flush=True)

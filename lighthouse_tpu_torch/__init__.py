@@ -21,7 +21,10 @@ resident on the device), ``fork_choice``, ``store``, ``op_pool`` and the
 ``beacon_processor`` scheduler. Over the chain runs the client surface:
 ``client`` (the node builder), ``http_api`` (the Beacon API), ``cli``
 (``python -m lighthouse_tpu_torch bn``), ``http_metrics``, ``api_client``,
-``execution_layer`` and ``eth1``.
+``execution_layer`` and ``eth1``; beside them ``native`` (the C++ bls
+backend, built with g++ at first use), ``network.discovery`` (ENR
+discovery), ``testing`` (the state harness), ``conformance`` (the spec-vector
+runner, ``run_all(device=...)``) and ``tools`` (database manager, lcli).
 
 Device rule: every entry point takes ``device=``; the default is CUDA, and
 with no CUDA device the default raises — nothing drops to the CPU unless the

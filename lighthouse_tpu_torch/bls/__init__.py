@@ -11,12 +11,15 @@ presents them. Backends:
   ``bls.backend`` (``aggregate_stage`` and
   ``verify_signature_sets_device_h2c``);
 * ``"oracle"``: the pure-Python ciphersuite (``oracle/ciphersuite.py``),
-  trusted and device-free.
+  trusted and device-free;
+* ``"native"``: the C++ CPU backend (``native/``, built with g++ at first
+  use), selected by name. It is never a rung a device failure falls to.
 
 Single-signature operations (``verify``, ``fast_aggregate_verify``,
-``aggregate_verify``, ``sign``) run on the oracle under both backends, as
-the reference's device backend does: a device round trip pays off only in
-batches. Wire formats match the reference: 48-byte compressed G1 pubkeys,
+``aggregate_verify``, ``sign``) run on the oracle under the device and
+oracle backends, as the reference's device backend does (a device round
+trip pays off only in batches); under ``"native"`` ``verify``,
+``fast_aggregate_verify`` and ``sign`` run in C++. Wire formats match the reference: 48-byte compressed G1 pubkeys,
 96-byte compressed G2 signatures, 32-byte secret keys.
 
 ``verify_signature_sets`` and ``warmup`` take ``device=``; a call that names
@@ -27,6 +30,7 @@ without it). Callers that cannot pass one, such as block processing, follow
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 from ..oracle import ciphersuite as _cs
@@ -39,6 +43,10 @@ SECRET_KEY_BYTES_LEN = 32
 
 INFINITY_PUBLIC_KEY = b"\xc0" + b"\x00" * 47
 INFINITY_SIGNATURE = b"\xc0" + b"\x00" * 95
+# decompressed, subgroup-checked pubkeys kept by their bytes: an oracle parse
+# is a square root and a subgroup check in Python, and block processing
+# re-reads the same sync committee every block
+PUBKEY_PARSE_CACHE = 8192
 
 _BACKEND = "device"
 _DEVICE = None  # None: CUDA (device.resolve_device)
@@ -48,7 +56,7 @@ def set_backend(name: str, *, device=None) -> None:
     """Select the backend; ``device`` is where ``"device"`` runs when a call
     names none (the counterpart of the reference's JAX default device)."""
     global _BACKEND, _DEVICE
-    if name not in ("device", "oracle"):
+    if name not in ("device", "oracle", "native"):
         raise ValueError(f"unknown bls backend {name!r}")
     _BACKEND = name
     _DEVICE = device
@@ -60,6 +68,12 @@ def get_backend() -> str:
 
 def get_device():
     return _DEVICE
+
+
+def _native():
+    from ..native import NativeBls
+
+    return NativeBls()
 
 
 class BlsError(Exception):
@@ -77,19 +91,25 @@ class PublicKey:
     def from_bytes(cls, data: bytes) -> "PublicKey":
         if len(data) != PUBLIC_KEY_BYTES_LEN:
             raise BlsError(f"invalid pubkey length {len(data)}")
-        try:
-            pt = _oc.g1_decompress(data)
-        except ValueError as e:
-            raise BlsError(str(e)) from None
-        if pt is None or not _oc.g1_in_subgroup(pt):
-            raise BlsError("pubkey not a valid subgroup point")
-        return cls(pt)
+        return _parse_pubkey(bytes(data))
 
     def serialize(self) -> bytes:
         return _oc.g1_compress(self.point)
 
     def __hash__(self):
         return hash(self.point)
+
+
+@functools.lru_cache(maxsize=PUBKEY_PARSE_CACHE)
+def _parse_pubkey(data: bytes) -> PublicKey:
+    """Parse and validate 48 bytes (a failure raises and is not kept)."""
+    try:
+        pt = _oc.g1_decompress(data)
+    except ValueError as e:
+        raise BlsError(str(e)) from None
+    if pt is None or not _oc.g1_in_subgroup(pt):
+        raise BlsError("pubkey not a valid subgroup point")
+    return PublicKey(pt)
 
 
 @dataclass(frozen=True)
@@ -114,6 +134,8 @@ class Signature:
         return _oc.g2_compress(self.point)
 
     def verify(self, pubkey: PublicKey, message: bytes) -> bool:
+        if _BACKEND == "native":
+            return _native().verify(pubkey.serialize(), message, _oc.g2_compress(self.point))
         return _cs.verify(pubkey.point, message, self.point)
 
 
@@ -143,6 +165,10 @@ class AggregateSignature:
         return cls(Signature.from_bytes(data).point)
 
     def fast_aggregate_verify(self, message: bytes, pubkeys) -> bool:
+        if _BACKEND == "native":
+            return _native().fast_aggregate_verify(
+                [pk.serialize() for pk in pubkeys], message, _oc.g2_compress(self.point)
+            )
         return _cs.fast_aggregate_verify([pk.point for pk in pubkeys], message, self.point)
 
     def aggregate_verify(self, messages, pubkeys) -> bool:
@@ -173,6 +199,8 @@ class SecretKey:
         return PublicKey(_cs.sk_to_pk(self.scalar))
 
     def sign(self, message: bytes) -> Signature:
+        if _BACKEND == "native":
+            return Signature.from_bytes(_native().sign(self.serialize(), message))
         return Signature(_cs.sign(self.scalar, message))
 
 
@@ -200,6 +228,22 @@ def _verify_sets_oracle(sets) -> bool:
             for s in sets
         ]
     )
+
+
+def _verify_sets_native(sets) -> bool:
+    import secrets
+
+    from .backend import RAND_BITS
+
+    try:
+        return _native().verify_signature_sets(
+            [[pk.serialize() for pk in s.signing_keys] for s in sets],
+            [s.message for s in sets],
+            [s.signature.serialize() for s in sets],
+            [secrets.randbits(RAND_BITS) or 1 for _ in sets],
+        )
+    except ValueError:  # malformed input (a non-32-byte message): a False verdict
+        return False
 
 
 def prepare_sets(sets, device=None):
@@ -268,6 +312,8 @@ def verify_signature_sets(sets, *, device=None) -> bool:
     sets = list(sets)
     if _BACKEND == "oracle":
         return _verify_sets_oracle(sets)
+    if _BACKEND == "native":
+        return _verify_sets_native(sets)
     return verify_prepared_sets(prepare_sets(sets, _DEVICE if device is None else device))
 
 

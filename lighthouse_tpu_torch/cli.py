@@ -3,9 +3,11 @@ the port's copy of ``lighthouse_tpu/cli.py``.
 
 ``python -m lighthouse_tpu_torch <subcommand>``:
 
-  bn         run a beacon node (HTTP API + metrics + optional slasher)
-  boot-node  UDP discovery rendezvous
-  version    print the version
+  bn                     run a beacon node (HTTP API + metrics + optional slasher)
+  boot-node              UDP discovery rendezvous, or an ENR discovery node
+  database-manager (dm)  inspect / version / migrate / compact the stores
+  lcli                   skip-slots, transition-blocks, pretty-ssz
+  version                print the version
 
 Global flags select the spec preset, the debug level, the device and the
 ``bls`` and epoch backends. ``--device`` (default ``cuda``) is where the
@@ -15,6 +17,7 @@ node runs; ``cpu`` must be named — nothing drops to the CPU on its own.
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 
 from . import __version__
@@ -52,10 +55,10 @@ def _add_spec_flags(p):
     p.add_argument("--debug-level", default="info",
                    choices=("debug", "info", "warning", "error"))
     p.add_argument(
-        "--bls-backend", default=None, choices=("device", "oracle"),
+        "--bls-backend", default=None, choices=("device", "native", "oracle"),
         help="BLS backend: device = the hand-written CUDA kernels on "
-             "--device (the default), oracle = pure Python. Unset = keep the "
-             "process's current backend.",
+             "--device (the default), native = the C++ CPU backend, oracle = "
+             "pure Python. Unset = keep the process's current backend.",
     )
     p.add_argument(
         "--epoch-backend", default=None, choices=("device", "numpy"),
@@ -98,6 +101,10 @@ def build_parser() -> argparse.ArgumentParser:
         help="comma-separated UDP boot-node addresses for peer discovery",
     )
     bn.add_argument(
+        "--boot-enrs", default="",
+        help="comma-separated hex ENRs for discv5-style discovery",
+    )
+    bn.add_argument(
         "--validator-monitor-auto", action="store_true",
         help="monitor every validator (validator_monitor.rs auto mode)",
     )
@@ -116,6 +123,36 @@ def build_parser() -> argparse.ArgumentParser:
     )
     boot.add_argument("--port", type=int, default=4242)
     boot.add_argument("--host", default="0.0.0.0")
+    boot.add_argument(
+        "--enr", action="store_true",
+        help="serve discv5-style ENR discovery (prints this node's ENR hex)",
+    )
+    boot.add_argument(
+        "--fork-digest", default="00000000",
+        help="hex fork digest the ENR advertises (--enr mode)",
+    )
+
+    dm = sub.add_parser(
+        "database-manager", aliases=["dm"],
+        help="inspect/migrate/compact the on-disk stores (Lighthouse's database_manager/)",
+    )
+    _add_spec_flags(dm)
+    dm.add_argument("command_db", choices=("inspect", "version", "migrate", "compact"))
+    dm.add_argument("--datadir", required=True)
+
+    lcli = sub.add_parser(
+        "lcli", help="dev utilities: skip-slots, transition-blocks, pretty-ssz"
+    )
+    _add_spec_flags(lcli)
+    lcli.add_argument(
+        "command_lcli", choices=("skip-slots", "transition-blocks", "pretty-ssz")
+    )
+    lcli.add_argument("--pre-state", help="input state SSZ file")
+    lcli.add_argument("--output", help="output file (state SSZ / JSON)")
+    lcli.add_argument("--slots", type=int, default=1)
+    lcli.add_argument("--blocks", nargs="*", default=[], help="block SSZ files")
+    lcli.add_argument("--type", dest="ssz_type", help="container name")
+    lcli.add_argument("--ssz-file", help="SSZ input for pretty-ssz")
 
     sub.add_parser("version", help="print version")
     return parser
@@ -138,6 +175,7 @@ def run_bn(args) -> "object":
         debug_level=args.debug_level,
         listen_port=args.listen_port,
         boot_nodes=args.boot_nodes,
+        boot_enrs=args.boot_enrs,
         validator_monitor_auto=args.validator_monitor_auto,
         validator_monitor_indices=tuple(
             int(x) for x in args.validator_monitor_indices.split(",") if x
@@ -150,6 +188,47 @@ def run_bn(args) -> "object":
     return builder.build().start()
 
 
+def run_lcli(args) -> int:
+    """The ``lcli`` subcommands over ``tools.db`` (file in, file or JSON out).
+    The state transition runs on the backends the spec flags select."""
+    from .tools import db
+
+    need = {
+        "skip-slots": ("pre_state", "output"),
+        "transition-blocks": ("pre_state", "output"),
+        "pretty-ssz": ("ssz_file", "ssz_type"),
+    }[args.command_lcli]
+    missing = [n for n in need if not getattr(args, n)]
+    if missing:
+        build_parser().error(
+            f"lcli {args.command_lcli} requires "
+            + ", ".join("--" + n.replace("_", "-") for n in missing)
+        )
+    spec = _spec(args)
+    if args.command_lcli == "pretty-ssz":
+        with open(args.ssz_file, "rb") as fh:
+            print(json.dumps(db.pretty_ssz(spec, args.ssz_type, fh.read()), indent=2))
+        return 0
+    from .client import _place_backends
+    from .device import resolve_device
+
+    _place_backends(resolve_device(args.device))  # as bn does; the default CUDA raises without it
+    with open(args.pre_state, "rb") as fh:
+        pre = fh.read()
+    if args.command_lcli == "skip-slots":
+        out = db.skip_slots(spec, pre, args.slots)
+    else:
+        blocks = []
+        for b in args.blocks:
+            with open(b, "rb") as fh:
+                blocks.append(fh.read())
+        out = db.transition_blocks(spec, pre, blocks)
+    with open(args.output, "wb") as fh:
+        fh.write(out)
+    print(json.dumps({"wrote": args.output, "bytes": len(out)}))
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.command == "version":
@@ -159,14 +238,35 @@ def main(argv=None) -> int:
         client = run_bn(args)
         client.wait_for_shutdown()
         return 0
+    if args.command in ("database-manager", "dm"):
+        from .tools import db
+
+        fn = {
+            "inspect": db.db_inspect, "version": db.db_version,
+            "migrate": db.db_migrate, "compact": db.db_compact,
+        }[args.command_db]
+        print(json.dumps(fn(args.datadir), indent=2))
+        return 0
+    if args.command == "lcli":
+        return run_lcli(args)
     if args.command == "boot-node":
         import time
 
-        from .network.boot_node import BootNode
         from .utils.logging import init_logging
 
         init_logging("info")
-        node = BootNode(host=args.host, port=args.port).start()
+        if args.enr:
+            from .network.discovery import DiscoveryService
+
+            node = DiscoveryService(
+                fork_digest=bytes.fromhex(args.fork_digest),
+                ip=args.host, udp_port=args.port,
+            ).start()
+            print(json.dumps({"enr": node.enr.encode().hex()}), flush=True)
+        else:
+            from .network.boot_node import BootNode
+
+            node = BootNode(host=args.host, port=args.port).start()
         try:
             while True:
                 time.sleep(1)

@@ -44,7 +44,7 @@ class ClientConfig:
     use_system_clock: bool = True
     listen_port: int | None = None  # TCP gossip/RPC listener (None = no p2p)
     boot_nodes: str = ""  # comma-separated UDP boot-node addresses
-    boot_enrs: str = ""   # hex ENRs: discovery is not ported, non-empty raises
+    boot_enrs: str = ""   # comma-separated hex ENRs (discv5-style discovery)
     device: str | None = None  # where the node runs; None = CUDA
 
 
@@ -251,11 +251,6 @@ class ClientBuilder:
     def build(self) -> Client:
         cfg = self.config
         init_logging(cfg.debug_level)
-        if [b for b in cfg.boot_enrs.split(",") if b.strip()]:
-            raise ValueError(
-                "boot_enrs: ENR discovery is not ported; meet peers through "
-                "boot_nodes (a UDP boot node)"
-            )
         dev = resolve_device(cfg.device)
         _place_backends(dev)
 
@@ -345,11 +340,40 @@ class ClientBuilder:
         if cfg.listen_port is not None:
             from ..network import BeaconNodeService, GossipsubTransport
 
-            transport = GossipsubTransport(self.spec, port=cfg.listen_port)
+            discovery = None
+            boot_enrs = [b.strip() for b in cfg.boot_enrs.split(",") if b.strip()]
+            if boot_enrs:
+                from ..network.discovery import DiscoveryService
+                from ..types.helpers import compute_fork_digest
+
+                st = chain.head.state
+                digest = compute_fork_digest(
+                    bytes(st.fork.current_version),
+                    bytes(st.genesis_validators_root),
+                )
+                discovery = DiscoveryService(fork_digest=digest).start()
+            transport = GossipsubTransport(
+                self.spec, port=cfg.listen_port, discovery=discovery
+            )
             network_service = BeaconNodeService(
                 transport.local_addr, self.spec, transport=transport,
                 chain=chain, op_pool=op_pool, device=dev,
             )
+            if discovery is not None:
+                from ..network.discovery import ENR
+
+                for hexenr in boot_enrs:
+                    try:
+                        enr, _ = ENR.decode(bytes.fromhex(hexenr))
+                        discovery.bootstrap(enr)
+                    except (ValueError, OSError) as e:
+                        log.warn("Bad boot ENR", error=str(e))
+                transport.discover_enr()
+                log.info(
+                    "ENR discovery active",
+                    enr=discovery.enr.encode().hex(),
+                    known=len(discovery.table),
+                )
             for boot in [b.strip() for b in cfg.boot_nodes.split(",") if b.strip()]:
                 try:
                     transport.discover(boot)

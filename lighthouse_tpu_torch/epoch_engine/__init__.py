@@ -31,6 +31,9 @@ from .deltas import (  # noqa: F401 — re-exported for the mutation sites
 
 _BACKEND = "device"
 _DEVICE = None  # None: CUDA (device.resolve_device)
+# (fork, "device" | "numpy") -> epoch boundaries that took that path since
+# the last reset_boundary_counts (the conformance phase's per-fork check)
+_BOUNDARIES: dict = {}
 
 
 def set_backend(name: str, *, device=None) -> None:
@@ -65,11 +68,25 @@ def maybe_process_epoch_on_device(spec, state, device=None) -> bool:
     Exceptions from the *write-back* phase deliberately propagate: by then
     the state is partially mutated, and a second full numpy transition
     would apply the epoch twice."""
-    if not device_backend_active():
-        return False
-    from .engine import process_epoch_on_device
+    handled = device_backend_active()
+    if handled:
+        from .engine import process_epoch_on_device
 
-    return process_epoch_on_device(spec, state, device=_DEVICE if device is None else device)
+        handled = process_epoch_on_device(
+            spec, state, device=_DEVICE if device is None else device
+        )
+    key = (getattr(state, "fork_name", "phase0"), "device" if handled else "numpy")
+    _BOUNDARIES[key] = _BOUNDARIES.get(key, 0) + 1
+    return handled
+
+
+def boundary_counts() -> dict:
+    """{(fork, "device" | "numpy"): boundaries} since the last reset."""
+    return dict(_BOUNDARIES)
+
+
+def reset_boundary_counts() -> None:
+    _BOUNDARIES.clear()
 
 
 def prepare_state(state, device=None):

@@ -129,7 +129,7 @@ class GossipsubTransport(SocketTransport):
                  params: GossipsubParams | None = None,
                  topics: list[str] | None = None,
                  run_heartbeat: bool = True,
-                 peer_manager=None,
+                 peer_manager=None, discovery=None,
                  self_limit: bool = True,
                  rng: random.Random | None = None):
         self.params = params or GossipsubParams()
@@ -161,7 +161,8 @@ class GossipsubTransport(SocketTransport):
         # honest-node default: self-limit our own Req/Resp against the
         # peer's quotas so a full node never trips a remote rate limiter
         super().__init__(spec, host=host, port=port, rpc_timeout=rpc_timeout,
-                         peer_manager=peer_manager, self_limit=self_limit)
+                         peer_manager=peer_manager, discovery=discovery,
+                         self_limit=self_limit)
         self._hb_thread = None
         if run_heartbeat:
             self._hb_thread = threading.Thread(

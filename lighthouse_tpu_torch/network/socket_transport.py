@@ -19,8 +19,9 @@ Frame layout (length-prefixed, one TCP stream per peer pair):
     kind 4 HELLO  : u8 addr_len | addr      (peer's canonical listen address)
 
 The frames, codec and scoring are the reference package's, byte for byte,
-so a port node and a ``lighthouse_tpu`` node talk over one connection. The
-discv5 ENR service is not ported: peers are found through the boot node.
+so a port node and a ``lighthouse_tpu`` node talk over one connection.
+Peers are found through a UDP boot node or, with ``discovery=`` (a
+``network.discovery.DiscoveryService``), through ENR lookups.
 """
 
 from __future__ import annotations
@@ -104,7 +105,7 @@ class SocketTransport(Transport):
     same node code runs over loopback (tests) or real sockets."""
 
     def __init__(self, spec, host: str = "127.0.0.1", port: int = 0,
-                 rpc_timeout: float = 10.0, peer_manager=None,
+                 rpc_timeout: float = 10.0, peer_manager=None, discovery=None,
                  self_limit: bool = False):
         from .peer_manager import PeerManager
 
@@ -130,6 +131,7 @@ class SocketTransport(Transport):
         # scores and bans survive the TCP connection, so reconnects by a
         # banned peer are refused until the ban expires
         self.peer_manager = peer_manager or PeerManager()
+        self.discovery = discovery
         # per-(peer, method) token buckets (rpc/rate_limiter.rs): refused
         # requests get an RPC error + a score penalty; sustained flooding
         # crosses the ban threshold and drops the peer
@@ -148,6 +150,9 @@ class SocketTransport(Transport):
         self._listener.bind((host, port))
         self._listener.listen(64)
         self.local_addr = f"{host}:{self._listener.getsockname()[1]}"
+        if self.discovery is not None:
+            self.discovery.peer_manager = self.peer_manager
+            self.discovery.update_tcp_port(self._listener.getsockname()[1])
         self._stopped = False
         self._threads: list[threading.Thread] = []
         self._accept_thread = threading.Thread(
@@ -316,6 +321,19 @@ class SocketTransport(Transport):
                 self.dial(addr)
         return found
 
+    def discover_enr(self, dial: bool = True) -> list[str]:
+        """Run an iterative discv5-style lookup on the attached
+        DiscoveryService and dial the discovered TCP listeners (banned
+        peers filtered by dial())."""
+        if self.discovery is None:
+            return []
+        self.discovery.lookup()
+        found = [a for a in self.discovery.known_tcp_addrs() if a != self.local_addr]
+        if dial:
+            for addr in found:
+                self.dial(addr)
+        return found
+
     def stop(self) -> None:
         self._stopped = True
         # shutdown wakes the accept loop at once (close alone leaves it
@@ -333,6 +351,9 @@ class SocketTransport(Transport):
         self._accept_thread.join(timeout=2.0)
         for th in readers:
             th.join(timeout=2.0)
+        if self.discovery is not None:
+            # the attached discovery endpoint ends with its transport
+            self.discovery.stop()
 
     # -- internals ---------------------------------------------------------
 
@@ -376,6 +397,12 @@ class SocketTransport(Transport):
         _shutdown_close(peer.sock)
         if why != "closed":
             log.warn("Peer dropped", addr=peer.addr, reason=why)
+        if self.discovery is not None and why.startswith("banned"):
+            # a banned peer's record leaves the routing table too, so
+            # lookups stop advertising it while the ban lasts
+            for enr in self.discovery.table.all_records():
+                if enr.tcp_addr == peer.addr:
+                    self.discovery.table.remove(enr.node_id)
 
     def _mark_seen(self, msg_id: bytes) -> bool:
         """True if the id is new (and records it)."""

@@ -286,9 +286,10 @@ class Vector(_Sequence):
     def hash_tree_root(self, value) -> bytes:
         if len(value) != self.length:
             raise SSZError(f"Vector[{self.length}]: got {len(value)}")
-        return merkleize_chunks(
-            self._elem_chunks(value), limit=self._chunk_limit(self.length)
-        )
+        return self.root_from_chunks(self._elem_chunks(value), len(value))
+
+    def root_from_chunks(self, chunks, n: int) -> bytes:
+        return merkleize_chunks(chunks, limit=self._chunk_limit(self.length))
 
     def default(self):
         return [self.elem.default() for _ in range(self.length)]
@@ -318,10 +319,11 @@ class List(_Sequence):
     def hash_tree_root(self, value) -> bytes:
         if len(value) > self.limit:
             raise SSZError(f"List[{self.limit}]: got {len(value)}")
-        root = merkleize_chunks(
-            self._elem_chunks(value), limit=self._chunk_limit(self.limit)
-        )
-        return mix_in_length(root, len(value))
+        return self.root_from_chunks(self._elem_chunks(value), len(value))
+
+    def root_from_chunks(self, chunks, n: int) -> bytes:
+        root = merkleize_chunks(chunks, limit=self._chunk_limit(self.limit))
+        return mix_in_length(root, n)
 
     def default(self):
         return []
@@ -479,6 +481,9 @@ class Container(SSZType):
             or (isinstance(t, ByteVector) and t.length <= 64)
             for _, t in cls.FIELDS
         )
+        if cls._leaf_fields:
+            # a field set drops the element's root memo (_flat_container_roots)
+            cls.__setattr__ = _leaf_setattr
 
     def __init__(self, **kwargs):
         for name, typ in self.FIELDS:
@@ -505,9 +510,7 @@ class Container(SSZType):
         copy never leaks into the original — required by the chain layer,
         which caches parent states and replays children off copies."""
         new = type(self).__new__(type(self))
-        memo = self.__dict__.get("_root_memo")
-        if memo is not None:  # checked against the field values on every use
-            new.__dict__["_root_memo"] = memo
+        d = new.__dict__
         for n in self._names:
             v = getattr(self, n)
             if isinstance(v, Container):
@@ -516,7 +519,13 @@ class Container(SSZType):
                 v = [x.copy() if isinstance(x, Container) else x for x in v]
             elif isinstance(v, np.ndarray):
                 v = v.copy()
-            setattr(new, n, v)
+            d[n] = v
+        memo = self.__dict__.get("_root_memo")
+        if memo is not None:  # the same field values: the same root
+            d["_root_memo"] = memo
+        fields = self.__dict__.get("_field_roots")
+        if fields is not None:  # each entry holds a private copy of its value
+            d["_field_roots"] = dict(fields)
         return new
 
     # -- descriptor protocol (classmethods so the class IS the type) --
@@ -586,16 +595,16 @@ class Container(SSZType):
         elif len(data) != fixed_len:
             raise SSZError(f"{cls.__name__}: trailing bytes")
         obj = cls.__new__(cls)
-        for name, _ in cls.FIELDS:
-            setattr(obj, name, fixed_vals[name])
+        obj.__dict__.update(fixed_vals)  # a new object: no memo to drop
         return obj
 
     @classmethod
     def hash_tree_root(cls, value=None) -> bytes:
         v = value if value is not None else cls
+        memo = v.__dict__.setdefault("_field_roots", {}) if value is not None else None
         roots = np.stack(
             [
-                np.frombuffer(t.hash_tree_root(getattr(v, n)), dtype=np.uint8)
+                np.frombuffer(_field_root(memo, n, t, getattr(v, n)), dtype=np.uint8)
                 for n, t in cls.FIELDS
             ]
         )
@@ -607,6 +616,76 @@ class Container(SSZType):
     @classmethod
     def default(cls):
         return cls()
+
+
+_FIELD_MEMO_MIN = 4096  # elements: smaller fields hash faster than they compare
+
+
+def _field_snapshot(x):
+    """A private copy of a large field value whose equality with a later
+    value proves the root unchanged, or None when the field is small or may
+    hold mutable elements (lists of containers keep per-element memos)."""
+    if isinstance(x, np.ndarray):
+        return x.copy() if x.size >= _FIELD_MEMO_MIN else None
+    if isinstance(x, list) and len(x) >= _FIELD_MEMO_MIN:
+        if all(type(e) is bytes or type(e) is int for e in x):
+            return list(x)
+    return None
+
+
+def _field_root(memo, name: str, t, x) -> bytes:
+    """``t.hash_tree_root(x)``, kept per container instance for large fields
+    against a private copy of what decides the root: for basic fields
+    (balances, participation, inactivity scores, randao mixes, the root
+    vectors) a copy of the value, for lists of leaf containers (the
+    registry) the elements' roots (each element's own memo makes them
+    cheap). An equal copy reuses the root, anything else hashes again.
+    Empty slots change none of a mainnet state's large fields but the two
+    root vectors."""
+    if memo is None:
+        return t.hash_tree_root(x)
+    if (isinstance(x, list) and len(x) >= _FIELD_MEMO_MIN and isinstance(t, _Sequence)
+            and isinstance(t.elem, type) and issubclass(t.elem, Container)
+            and t.elem._leaf_fields):
+        chunks = t._elem_chunks(x)  # a new array: it can serve as the copy
+        hit = memo.get(name)
+        if (hit is not None and isinstance(hit[0], np.ndarray) and hit[0].shape == chunks.shape
+                and np.array_equal(hit[0], chunks)):
+            return hit[1]
+        root = t.root_from_chunks(chunks, len(x))
+        memo[name] = (chunks, root)
+        return root
+    hit = memo.get(name)
+    if hit is not None:
+        snap, root = hit
+        if isinstance(x, np.ndarray):
+            same = (isinstance(snap, np.ndarray) and snap.dtype == x.dtype
+                    and snap.shape == x.shape and np.array_equal(snap, x))
+        else:
+            same = isinstance(snap, list) and snap == x and all(
+                type(e) is bytes or type(e) is int for e in x)
+        if same:
+            return root
+    root = t.hash_tree_root(x)
+    snap = _field_snapshot(x)
+    if snap is not None:
+        memo[name] = (snap, root)
+    else:
+        memo.pop(name, None)
+    return root
+
+
+def _leaf_setattr(self, name, value):
+    """``__setattr__`` of ``_leaf_fields`` containers: drops the element's
+    root memo, so a memo found on an element is the root of its current
+    field values (memos are only made over immutable values)."""
+    d = self.__dict__
+    if "_root_memo" in d:
+        del d["_root_memo"]
+    object.__setattr__(self, name, value)
+
+
+_IMMUTABLE = (bytes, int, np.integer, np.bool_)
 
 
 def _field_key(t, v):
@@ -648,26 +727,25 @@ def _flat_container_roots(cls, values) -> np.ndarray:
 
     A 2^20-validator registry is 2^20 containers of 8 fields, and hashing
     each one alone (a Python call per field and per tree level) dominates a
-    mainnet state root. Here each element keeps its root memoised against
-    an immutable copy of its field values (a mutated field misses), and the
-    misses are hashed together, one ``sha256_pairs`` call per tree level.
-    The roots equal the per-element ``hash_tree_root``; Lighthouse keeps a
-    tree-hash cache for the same reason."""
+    mainnet state root. Here each element keeps its root memoised while its
+    field values are immutable objects and no field has been set since
+    (``_leaf_setattr`` drops the memo), and the misses are hashed together,
+    one ``sha256_pairs`` call per tree level. The roots equal the
+    per-element ``hash_tree_root``; Lighthouse keeps a tree-hash cache for
+    the same reason."""
     fields = cls.FIELDS
     get = operator.attrgetter(*cls._names)
     roots: list = [None] * len(values)
-    miss, miss_keys = [], []
+    miss, miss_keys, keep = [], [], []
     for i, v in enumerate(values):
         memo = v.__dict__.get("_root_memo")
         if memo is not None:
-            try:
-                if memo[0] == get(v):
-                    roots[i] = memo[1]
-                    continue
-            except ValueError:  # a field held as an array: hash it again
-                pass
+            roots[i] = memo
+            continue
+        raw = get(v)
         miss.append(i)
-        miss_keys.append(tuple(_field_key(t, x) for (_, t), x in zip(fields, get(v))))
+        keep.append(all(isinstance(x, _IMMUTABLE) for x in raw))
+        miss_keys.append(tuple(_field_key(t, x) for (_, t), x in zip(fields, raw)))
     if miss:
         m, width = len(miss), next_pow2(len(fields))
         leaves = np.zeros((m, width, 32), np.uint8)
@@ -686,9 +764,10 @@ def _flat_container_roots(cls, values) -> np.ndarray:
         while level.shape[1] > 1:
             w = level.shape[1] // 2
             level = sha256_pairs(level.reshape(m * w, 64)).reshape(m, w, 32)
-        for i, key, r in zip(miss, miss_keys, level[:, 0]):
+        for i, k, r in zip(miss, keep, level[:, 0]):
             root = r.tobytes()
-            values[i].__dict__["_root_memo"] = (key, root)
+            if k:
+                values[i].__dict__["_root_memo"] = root
             roots[i] = root
     if not roots:
         return np.zeros((0, 32), np.uint8)

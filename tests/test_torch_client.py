@@ -2,9 +2,11 @@
 reference's.
 
 ``lighthouse_tpu_torch.{client,cli}`` and ``beacon_chain.validator_monitor``
-are the port's copies of the reference's modules. The parser offers ``bn``,
-``boot-node`` and ``version`` with ``--device`` in place of ``--platform``
-and the port's backend names; ``ClientBuilder`` builds the reference's node
+are the port's copies of the reference's modules. The parser offers ``bn``
+(with ``--boot-enrs``), ``boot-node`` (with ``--enr``), ``database-manager``,
+``lcli`` and ``version`` with ``--device`` in place of ``--platform`` and
+the port's backend names; a node built with ``boot_enrs`` finds a reference
+node through an ENR boot node; ``ClientBuilder`` builds the reference's node
 in memory and on a datadir across a restart (the interop genesis reused,
 head and fork choice restored, equal to the reference client's on the same
 blocks); it checkpoint-syncs from a reference server to an equal anchor; a
@@ -118,7 +120,7 @@ def test_parser_surface():
     assert args.bls_backend is None and args.epoch_backend is None
     ref = vars(r_parser().parse_args(["bn", "--preset", "minimal", "--metrics", "--slasher",
                                       "--http-port", "0", "--metrics-port", "0"]))
-    assert set(vars(args)) == (set(ref) - {"platform", "boot_enrs"}) | {"device"}
+    assert set(vars(args)) == (set(ref) - {"platform"}) | {"device"}
     assert {k: v for k, v in vars(args).items() if k in ref} == {
         k: v for k, v in ref.items() if k in vars(args)}
     args = p.parse_args(["bn", "--device", "cpu", "--bls-backend", "oracle",
@@ -126,13 +128,27 @@ def test_parser_surface():
     assert (args.device, args.bls_backend, args.epoch_backend, args.electra_fork_epoch) == (
         "cpu", "oracle", "numpy", 0)
     assert p.parse_args(["bn", "--bls-backend", "device"]).bls_backend == "device"
+    assert p.parse_args(["bn", "--bls-backend", "native"]).bls_backend == "native"
+    assert p.parse_args(["bn", "--boot-enrs", "ab,cd"]).boot_enrs == "ab,cd"
     assert p.parse_args(["boot-node", "--port", "0"]).port == 0
+    boot = p.parse_args(["boot-node", "--enr", "--fork-digest", "01020304"])
+    assert (boot.enr, boot.fork_digest) == (True, "01020304")
+    assert vars(boot) == vars(r_parser().parse_args(["boot-node", "--enr", "--fork-digest", "01020304"]))
+    for argv in (["database-manager", "inspect", "--datadir", "d"],
+                 ["dm", "migrate", "--datadir", "d"],
+                 ["lcli", "skip-slots", "--pre-state", "a", "--output", "b", "--slots", "3"],
+                 ["lcli", "transition-blocks", "--pre-state", "a", "--output", "b",
+                  "--blocks", "x", "y"],
+                 ["lcli", "pretty-ssz", "--type", "Checkpoint", "--ssz-file", "c"]):
+        got, want = vars(p.parse_args(argv)), vars(r_parser().parse_args(argv))
+        assert set(got) == (set(want) - {"platform"}) | {"device"}
+        assert {k: v for k, v in got.items() if k != "device"} == {
+            k: v for k, v in want.items() if k != "platform"}
     assert p.parse_args(["version"]).command == "version"
     for argv in (["bn", "--platform", "cpu"], ["bn", "--bls-backend", "tpu"],
-                 ["bn", "--bls-backend", "native"], ["bn", "--epoch-backend", "auto"],
-                 ["bn", "--boot-enrs", "ab"], ["boot-node", "--enr"],
-                 ["vc"], ["account-manager"], ["database-manager"], ["lcli"],
-                 ["validator-manager"]):
+                 ["bn", "--epoch-backend", "auto"], ["database-manager"],
+                 ["database-manager", "prune", "--datadir", "d"], ["lcli"],
+                 ["vc"], ["account-manager"], ["validator-manager"], ["vm", "list"]):
         with pytest.raises(SystemExit):
             p.parse_args(argv)
 
@@ -178,9 +194,35 @@ def test_builder_in_memory_equals_the_reference():
         pc.stop()
 
 
-def test_builder_refuses_enr_discovery():
-    with pytest.raises(ValueError, match="ENR discovery is not ported"):
-        PBuilder(p_minimal(**PHASE0), PConfig(device="cpu", boot_enrs="abcd")).build()
+def test_builder_discovers_a_peer_through_boot_enrs():
+    """A reference node and a port node, each built with ``boot_enrs`` naming
+    one ENR boot node and no ``boot_nodes``: the port node's startup lookup
+    finds the reference node's listener and peers with it."""
+    from lighthouse_tpu.network.discovery import DiscoveryService as RDiscovery
+    from lighthouse_tpu.types.helpers import compute_fork_digest
+
+    genesis = StateHarness(r_minimal(**PHASE0), N).state
+    digest = compute_fork_digest(bytes(genesis.fork.current_version),
+                                 bytes(genesis.genesis_validators_root))
+    boot = RDiscovery(fork_digest=digest).start()
+    cfg = dict(interop_validators=N, genesis_time=0, use_system_clock=False, http_enabled=False,
+               listen_port=0, boot_enrs=boot.enr.encode().hex())
+    r_bls.set_backend("native")
+    p_bls.set_backend("native")
+    rc = RBuilder(r_minimal(**PHASE0), RConfig(**cfg)).build()
+    pc = None
+    try:
+        pc = PBuilder(p_minimal(**PHASE0), PConfig(device="cpu", **cfg)).build()
+        rt, pt = rc.network_service.transport, pc.network_service.transport
+        assert pt.discovery.enr.fork_digest == digest
+        assert rt.local_addr in pt.discovery.known_tcp_addrs()
+        assert rt.local_addr in pt.peers()
+    finally:
+        if pc is not None:
+            pc.stop()
+        rc.stop()
+        rc.network_service.transport.discovery.stop()
+        boot.stop()
 
 
 def test_restart_on_a_datadir_equals_the_reference(tmp_path):

@@ -87,11 +87,22 @@ def _wait(cond, timeout=10.0):
 # -- boot node ----------------------------------------------------------------------------
 
 
+def _wake_reference_boot(boot):
+    """Set the reference boot node's stop flag and send its serve loop one
+    datagram, without waiting for the reply (a loaded host may answer late):
+    the loop returns after that datagram and ``boot.stop()`` joins it."""
+    boot._stop.set()
+    host, port = boot.local_addr.rsplit(":", 1)
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.sendto(b"ANNOUNCE 127.0.0.1:1", (host, int(port)))
+
+
+
 def test_boot_nodes_answer_each_others_clients():
     for Boot, announce in ((PBootNode, r_announce), (RBootNode, p_announce)):
         boot = Boot().start()
         if Boot is RBootNode:  # wake the reference's serve loop for its stop
-            wake = (lambda b: (b._stop.set(), r_announce(b.local_addr, "127.0.0.1:1", timeout=1)))
+            wake = _wake_reference_boot
         else:
             wake = (lambda b: None)
         try:
@@ -262,3 +273,77 @@ def test_range_sync_over_sockets_across_packages(chains, late_pkg, full_pkg):
                 pass
         late.stop()
         full.stop()
+
+
+# -- gossip after a one-block range sync (the chip script's socket step, small) ---------------
+
+GOSSIP_VALIDATORS = 512  # minimal phase0: 64 attesters a slot
+N_GOSSIP = 64
+
+
+@pytest.fixture(scope="module")
+def one_block():
+    """Genesis at 512 validators and one harness block, with the head slot's
+    64 single-bit attestations, in both packages' types."""
+    from lighthouse_tpu_torch.types.containers import for_preset
+
+    rspec, pspec = r_minimal(**PHASE0), p_minimal(**PHASE0)
+    h = StateHarness(rspec, GOSSIP_VALIDATORS)
+    genesis = h.state.copy()
+    block = h.produce_block(1)
+    h.apply_block(block)
+    atts = h.unaggregated_attestations_for_slot(h.state, 1, h.head_root(h.state))
+    assert len(atts) == N_GOSSIP
+    pns = for_preset(pspec.preset.name)
+    return {
+        "ref": (rspec, genesis, [block], atts),
+        "port": (pspec, convert.state_from_ssz(pspec, "phase0", genesis.serialize()),
+                 [convert.block_from_ssz(pspec, "phase0", block.serialize())],
+                 [pns.Attestation.decode(a.serialize()) for a in atts]),
+    }
+
+
+@pytest.mark.parametrize("pkg", ["ref", "port"])
+def test_range_synced_node_queues_socket_gossip(one_block, pkg):
+    """Node B range-syncs node A's one block over a gossipsub socket pair,
+    then A publishes the head slot's 64 attestations: all 64 reach B's
+    held processor well inside the chip script's 60 s wait, in both
+    packages, and verify when it is released."""
+    from lighthouse_tpu.beacon_processor import WorkType as RWork
+    from lighthouse_tpu_torch.beacon_processor import WorkType as PWork
+
+    spec, genesis, blocks, atts = one_block[pkg]
+    Gossip, Service, Clock, Work = ((PGossipsub, PService, PClock, PWork) if pkg == "port"
+                                    else (RGossipsub, RService, RClock, RWork))
+    kw = {"device": "cpu"} if pkg == "port" else {}
+    saved = p_bls.get_backend(), p_bls.get_device()
+    p_bls.set_backend("native")
+    rng = ({"rng": random.Random(1)}, {"rng": random.Random(2)}) if pkg == "port" else ({}, {})
+    ta, tb = Gossip(spec, **rng[0]), Gossip(spec, **rng[1])
+    a = Service(ta.local_addr, spec, genesis.copy(), ta, slot_clock=Clock(1), **kw)
+    b = Service(tb.local_addr, spec, genesis.copy(), tb, slot_clock=Clock(1), **kw)
+    try:
+        a.chain.process_chain_segment(blocks)
+        assert tb.dial(ta.local_addr)
+        assert _wait(lambda: ta.local_addr in tb.peers() and tb.local_addr in ta.peers())
+        b.connect(ta.local_addr)  # status -> range sync of the one block
+        assert _wait(lambda: b.chain.head.root == a.chain.head.root, timeout=60.0)
+        assert b.sync.wait_idle(60.0)
+        assert _wait(lambda: ta._topic_peers(TOPIC))
+        b.processor.synchronous = False  # held: gossip queues, nothing drains it
+        t0 = time.monotonic()
+        for att in atts:
+            a.publish_attestation(att)
+        queued = _wait(lambda: b.processor.queue_len(Work.GossipAttestation) == N_GOSSIP, 60.0)
+        took = time.monotonic() - t0
+        assert queued, (pkg, b.processor.queue_len(Work.GossipAttestation), took)
+        assert took < 10.0, took
+        b.processor.synchronous = True
+        b.processor.run_until_idle()
+        assert b.processor.queue_len(Work.GossipAttestation) == 0
+        assert not any(b.processor.dropped.values()) and not any(b.processor.expired.values())
+    finally:
+        _stop(ta, tb)
+        b.stop()
+        a.stop()
+        p_bls.set_backend(*saved[:1], device=saved[1])

@@ -119,6 +119,72 @@ def test_registry_roots_after_mutation_match_reference():
     assert typ_p.hash_tree_root(pv) == typ_r.hash_tree_root(rv)
 
 
+@pytest.mark.parametrize("change", ["none", "in_place", "replaced", "resized", "root_list",
+                                    "copy_then_mutate", "validator", "validator_replaced",
+                                    "validator_appended"])
+def test_state_field_roots_follow_every_change(change):
+    """A container keeps the roots of its large fields against private
+    copies of what decides them (basic fields: the values; the registry:
+    its elements' roots, each element's memo dropped by any field set):
+    in-place edits, replaced and resized arrays, edited lists of roots, a
+    validator's field set, a validator replaced or appended all show in the
+    root, equal to the reference's, and a copy mutated after its original
+    was hashed does not reuse the original's roots."""
+    rng = np.random.default_rng(11)
+    n = 5000  # above the memo's size floor
+    pstate = p_con.for_preset("mainnet").state_types["altair"]()
+    rstate = r_con.for_preset("mainnet").state_types["altair"]()
+    rstate.validators = [_rand(r_con.Validator, rng) for _ in range(n)]
+    typ_r = r_ssz.List(r_con.Validator, 1 << 40)
+    pstate.validators = p_ssz.List(p_con.Validator, 1 << 40).decode(typ_r.encode(rstate.validators))
+    pstate.balances = rng.integers(0, 2**40, n, dtype=np.uint64)
+    rstate.balances = pstate.balances.copy()
+    for name in ("previous_epoch_participation", "current_epoch_participation"):
+        arr = rng.integers(0, 8, n, dtype=np.uint8)
+        setattr(pstate, name, arr)
+        setattr(rstate, name, arr.copy())
+    pstate.inactivity_scores = rng.integers(0, 100, n, dtype=np.uint64)
+    rstate.inactivity_scores = pstate.inactivity_scores.copy()
+    assert pstate.tree_root() == rstate.tree_root()
+    assert pstate.tree_root() == rstate.tree_root()  # from the kept roots
+    target = pstate
+    if change == "copy_then_mutate":
+        target = pstate.copy()
+        change = "in_place"
+    if change == "in_place":
+        target.balances[17] += 1
+        rstate.balances[17] += 1
+        target.inactivity_scores[n - 1] = 7
+        rstate.inactivity_scores[n - 1] = 7
+    elif change == "replaced":
+        target.balances = target.balances[::-1].copy()
+        rstate.balances = rstate.balances[::-1].copy()
+    elif change == "resized":
+        target.balances = np.append(target.balances, np.uint64(5))
+        rstate.balances = np.append(rstate.balances, np.uint64(5))
+    elif change == "validator":
+        target.validators[123].effective_balance = 7
+        rstate.validators[123].effective_balance = 7
+        target.validators[n - 1].slashed = not target.validators[n - 1].slashed
+        rstate.validators[n - 1].slashed = not rstate.validators[n - 1].slashed
+    elif change == "validator_replaced":
+        v = _rand(r_con.Validator, rng)
+        rstate.validators[42] = v
+        target.validators[42] = p_con.Validator.decode(r_con.Validator.encode(v))
+    elif change == "validator_appended":
+        v = _rand(r_con.Validator, rng)
+        rstate.validators.append(v)
+        target.validators.append(p_con.Validator.decode(r_con.Validator.encode(v)))
+    elif change == "root_list":
+        target.block_roots[3] = b"\x09" * 32
+        rstate.block_roots[3] = b"\x09" * 32
+        target.randao_mixes[5000] = b"\x01" * 32
+        rstate.randao_mixes[5000] = b"\x01" * 32
+    assert target.tree_root() == rstate.tree_root(), change
+    if target is not pstate:
+        assert pstate.tree_root() != target.tree_root()
+
+
 def test_registry_encode_matches_reference():
     """Lists of fixed-size containers encode column by column in the port:
     the same bytes as the reference's per-element encode, at the field

@@ -277,8 +277,10 @@ def test_port_imports_neither_jax_nor_reference(registry, batch):
     """A fresh interpreter imports the port (its KZG stack and PeerDAS
     modules, loadshed, the network, the light client, the slasher, recovery,
     fork revert, both persistence modules, the client, the CLI and its parser,
-    the Beacon API server and client, the metrics server, eth1 and the
-    execution layer's HTTP stack included), verifies on the CPU,
+    the Beacon API server and client, the metrics server, eth1, the
+    execution layer's HTTP stack, the native backend, discovery, the test
+    harness, the conformance runner and the database tools included),
+    verifies on the CPU (and through the native backend, its ENR verified),
     runs one numpy epoch boundary, serves a status from a node on the chain
     (its light-client server cache in place), sweeps the slasher's span
     store on the CPU, round-trips a fork-choice snapshot, loads the port's
@@ -311,6 +313,9 @@ import lighthouse_tpu_torch.http_metrics, lighthouse_tpu_torch.api_client, light
 import lighthouse_tpu_torch.execution_layer.auth, lighthouse_tpu_torch.execution_layer.http
 import lighthouse_tpu_torch.execution_layer.mock, lighthouse_tpu_torch.execution_layer.json_server
 import lighthouse_tpu_torch.beacon_chain.validator_monitor, lighthouse_tpu_torch.utils.system_health
+import lighthouse_tpu_torch.native, lighthouse_tpu_torch.network.discovery
+import lighthouse_tpu_torch.testing, lighthouse_tpu_torch.conformance
+import lighthouse_tpu_torch.conformance.generate, lighthouse_tpu_torch.tools.db
 from lighthouse_tpu_torch.network import BeaconNodeService, LoopbackTransport
 from lighthouse_tpu_torch import epoch_engine, state_transition
 from lighthouse_tpu_torch.beacon_chain import BeaconChain
@@ -343,8 +348,18 @@ blob = lighthouse_tpu_torch.fork_choice.persistence.serialize_fork_choice(chain.
 ok = ok and len(lighthouse_tpu_torch.fork_choice.persistence.restore_fork_choice(
     spec, blob).proto.nodes) == 1
 setup = lighthouse_tpu_torch.kzg.load_trusted_setup()
-args = lighthouse_tpu_torch.cli.build_parser().parse_args(["bn", "--device", "cpu"])
-ok = ok and args.device == "cpu" and args.command == "bn"
+args = lighthouse_tpu_torch.cli.build_parser().parse_args(
+    ["bn", "--device", "cpu", "--boot-enrs", "ab"])
+ok = ok and args.device == "cpu" and args.command == "bn" and args.boot_enrs == "ab"
+lighthouse_tpu_torch.bls.set_backend("native")
+sk = lighthouse_tpu_torch.bls.SecretKey.from_bytes((5).to_bytes(32, "big"))
+m = bytes(32)
+ok = ok and lighthouse_tpu_torch.bls.verify_signature_sets(
+    [lighthouse_tpu_torch.bls.SignatureSet.single_pubkey(sk.sign(m), sk.public_key(), m)])
+disc = lighthouse_tpu_torch.network.discovery.DiscoveryService(fork_digest=bytes(4))
+ok = ok and disc.enr.verify()
+disc.stop()
+ok = ok and lighthouse_tpu_torch.conformance.default_vector_root().endswith("vectors")
 ok = ok and setup.field_elements_per_blob == 4096 and len(setup.g2_monomial) == 65
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "lighthouse_tpu" or m.startswith("lighthouse_tpu.")]
