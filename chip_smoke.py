@@ -210,7 +210,30 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      (``--boot-enrs``): each finds the other through discovery and peers
      with it, and a block published to node 1 reaches node 2's head over
      gossip (one bls batch on the card on each node).
-Phases 8-10, 12-16 and 17-20 each set the counts to 0 before and read them after,
+ 21. the validator client (run beside phase 19, on its nodes): (a) a
+     ``ProductionValidatorClient`` of VC_KEYS = 1,024 keys of node A's
+     registry (a contiguous range and 16 sync-committee members, none seen
+     attesting in the head epoch) against a ``BeaconApiServer`` on A, its
+     API client given 600 s where ``vc`` gives 10 s (at 2^20 the
+     epoch-after duty routes take longer than 10 s): ``run_slot`` for 2
+     slots after A's head (duties poll, attestations, selection proofs and
+     aggregates, sync messages), every publish 200, an attestation carrying
+     another's signature 400, A's verdicts on the card equal to the
+     oracle's, the attestations in A's op pool, bls_device and epoch_device
+     clean; the second slot under
+     the profiler; a second ``ValidatorStore`` on the same slashing
+     database refused a double vote with no request; one doppelganger
+     liveness check timed, live exactly where A saw attestations; (b) on
+     phase 19 (b)'s ``bn`` before its restart: ``account-manager`` and
+     ``validator-manager create`` keystores (scrypt), a ``vc`` from
+     ``cli.build_parser()``/``cli.run_vc`` with
+     interop keys 0-55, the first keystores and keys 56-63 from a
+     ``MockWeb3Signer``, its keymanager reached by ``validator-manager
+     import``/``list``; ``run_slot`` for the current slot: the VC's block in
+     one bls batch on the card and the head, its attestations, aggregate and
+     sync messages verified on the card; watch records the slot and serves
+     the head's root; a second proposal refused before any request.
+Phases 8-10, 12-16 and 17-21 each set the counts to 0 before and read them after,
 as phase 5 does, and hold any shape they launched that phase 4 did not see
 (phase 14's column and batch shapes, phase 15's and phase 16's must all be
 among the shapes checked before them: phase 3's warm-up runs one column
@@ -220,7 +243,8 @@ indexed item (a backfilled block, a sync-committee message), a
 contribution's three items, and light-client batches of 16 and 4 sessions
 over two 512-key committees; phase 19's API batch runs the gossip path's
 shapes, and its CLI node's new shapes are checked exact after it; phase
-20's new shapes, the vectors' and the discovery nodes', likewise).
+20's and 21's new shapes, the vectors', the discovery nodes' and the
+validator client's, likewise; 21's are timed beside the others).
 
 Full configuration: 2^20 validator pubkeys resident as the [N, 3, 25]
 cache (mainnet); main path batches of 64 aggregate signature sets, 512 keys
@@ -235,7 +259,8 @@ mainnet sync-committee size (512) and the reference bench's 16 sessions;
 the slasher at 2^20 validators, windows of 64 (the reference bench's) and
 4096 epochs (Lighthouse's default); a restarted 2^20-validator node; the
 Beacon API over the 2^20 node (the CLI's own node at interop size: an
-interop genesis derives every key with the oracle).
+interop genesis derives every key with the oracle); a validator client of
+1,024 keys over it, and the CLI's over the interop node.
 The last line of stdout is the result object; the line before it the
 kernel table; before that the card's name and power limit.
 """
@@ -3920,7 +3945,10 @@ def cli_phase(dev, root: str) -> dict:
     after, ``runs["cli_publish"]``); a second node checkpoint-synced from
     the first, its anchor the first one's finalized state; the first node
     stopped and booted again on its datadir: fork choice restored, the head
-    slot and root as before the stop."""
+    slot and root as before the stop. Phase 21 (b) (``vc_cli_phase``) runs on
+    the first node before the restart (the interop mock execution layer
+    keeps no payloads across one, so the restarted node cannot produce a
+    block); its result is ``out["vc_cli"]``, its time its ``phase_s``."""
     from lighthouse_tpu_torch import bls, cli
     from lighthouse_tpu_torch.ops.bls import fused_mul as fm
 
@@ -3997,6 +4025,10 @@ def cli_phase(dev, root: str) -> dict:
             c2.stop()
             _close_stores(c2)
 
+        t_vc = time.time()
+        out["vc_cli"] = vc_cli_phase(c1, dev, root)
+        out["vc_cli"]["phase_s"] = time.time() - t_vc
+
         # restart on the same datadir
         before = (c1.chain.head.root, int(c1.chain.head.slot), len(c1.chain.fork_choice.proto.nodes))
         t0 = time.time()
@@ -4020,6 +4052,604 @@ def cli_phase(dev, root: str) -> dict:
         f"== the finalized state); stop {out['stop_s']:.2f} s, restart "
         f"{out['restart']['boot_s']:.2f} s to the same head and fork choice; launches "
         f"{json.dumps(runs['cli_publish']['by'])}")
+    return out
+
+
+VC_KEYS = 1024  # phase 21 (a): the keys of a large operator's validator client
+VC_SYNC_KEYS = 16  # of them members of the current sync committee, so every service has work
+VC_SLOTS = 2  # consecutive slots of node A's clock driven through ``run_slot``
+VC_TIMEOUT_S = 600.0  # phase 21 (a)'s API client timeout (``vc`` gives 10 s; see ``vc_phase``)
+VC_CLI_KEYS = 2  # phase 21 (b): keystores written by account-manager, and as many by vm create
+VC_CLI_REMOTE = 8  # the CLI node's last interop keys, served by a MockWeb3Signer
+VC_SEED = "5eed" * 16  # EIP-2333 seed of the (b) keystores
+
+
+def _route(method: str, path: str) -> str:
+    """A request as its route: the query dropped, each number as {n}."""
+    import re
+
+    return f"{method} " + re.sub(r"/\d+(?=/|$)", "/{n}", path.split("?")[0])
+
+
+class _HttpLog:
+    """Every request one ``BeaconNodeHttpClient`` makes: (route, ms)."""
+
+    def __init__(self, client, patches):
+        self.calls = []
+        real = client._req
+
+        def req(method, path, body=None):
+            t0 = time.perf_counter()
+            try:
+                return real(method, path, body)
+            finally:
+                self.calls.append((_route(method, path), (time.perf_counter() - t0) * 1e3))
+
+        patches.set(client, "_req", req)
+
+    def by_route(self, since: int = 0) -> dict:
+        out: dict = {}
+        for route, ms in self.calls[since:]:
+            d = out.setdefault(route, {"calls": 0, "ms": 0.0})
+            d["calls"] += 1
+            d["ms"] += ms
+        return out
+
+
+VC_DUTY_ROUTES = ("GET /eth/v1/beacon/states/head/validators",
+                  "GET /eth/v1/validator/duties/proposer/{n}",
+                  "POST /eth/v1/validator/duties/attester/{n}",
+                  "POST /eth/v1/validator/duties/sync/{n}")
+VC_PUBLISH_ROUTES = {"attestations": "POST /eth/v1/beacon/pool/attestations",
+                     "aggregates": "POST /eth/v1/validator/aggregate_and_proofs",
+                     "sync": "POST /eth/v1/beacon/pool/sync_committees",
+                     "block": "POST /eth/v1/beacon/blocks"}
+
+
+class _NodeVerdicts:
+    """The node's verdict on every attestation, aggregate and sync message
+    the chain judged, and its bls batches by route (calls and ms)."""
+
+    ROUTES = {"attestations": "verify_unaggregated_attestations",
+              "aggregates": "verify_aggregated_attestations",
+              "sync": "verify_sync_committee_messages"}
+
+    def __init__(self, chain, dev, patches):
+        import threading
+
+        self.results = {k: [] for k in self.ROUTES}
+        self.calls = {k: 0 for k in self.ROUTES}
+        self.verify_ms = {k: 0.0 for k in self.ROUTES}
+        local = threading.local()
+        real_batch = chain._batch_verify_items
+
+        def batch(items):
+            t0 = time.perf_counter()
+            try:
+                return real_batch(items)
+            finally:
+                _sync(dev)
+                route = getattr(local, "route", None)
+                if route is not None:
+                    self.calls[route] += 1
+                    self.verify_ms[route] += (time.perf_counter() - t0) * 1e3
+
+        patches.set(chain, "_batch_verify_items", batch)
+        for route, name in self.ROUTES.items():
+            def judged(objs, _real=getattr(chain, name), _route=route):
+                local.route = _route
+                try:
+                    res = _real(objs)
+                finally:
+                    local.route = None
+                self.results[_route].extend(res)
+                return res
+
+            patches.set(chain, name, judged)
+
+
+def _oracle_verdicts(spec, state, secret_key, results: dict) -> dict:
+    """The oracle's verdict on each object the node judged, in order: each
+    signature equal to sk * H(signing root), with the signing roots computed
+    here from the node's state and ``secret_key(i)`` validator i's key (a
+    valid signature under a known key is that one point)."""
+    from lighthouse_tpu_torch import state_transition as st
+    from lighthouse_tpu_torch.oracle import ciphersuite as cs
+    from lighthouse_tpu_torch.oracle import curves as oc
+    from lighthouse_tpu_torch.oracle.fields import R
+    from lighthouse_tpu_torch.ssz import uint64
+    from lighthouse_tpu_torch.types.containers import SigningData
+    from lighthouse_tpu_torch.types.helpers import (
+        compute_signing_root,
+        get_domain,
+        sync_committee_signing_root,
+    )
+
+    points: dict = {}
+
+    def signed(root: bytes, sk: int) -> bytes:
+        if root not in points:
+            points[root] = cs.hash_to_g2(root)
+        return oc.g2_compress(oc.g2_mul(points[root], sk % R))
+
+    def attestation_ok(att) -> bool:
+        data = att.data
+        committee = st.get_beacon_committee(spec, state, int(data.slot), int(data.index))
+        members = [int(v) for v, bit in zip(committee, att.aggregation_bits) if bit]
+        domain = get_domain(spec, state, spec.DOMAIN_BEACON_ATTESTER, epoch=int(data.target.epoch))
+        return bytes(att.signature) == signed(compute_signing_root(data, domain),
+                                              sum(secret_key(v) for v in members))
+
+    def aggregate_ok(sap) -> bool:
+        msg, slot = sap.message, int(sap.message.aggregate.data.slot)
+        epoch = spec.compute_epoch_at_slot(slot)
+        sk = secret_key(int(msg.aggregator_index))
+        sel = SigningData(object_root=uint64.hash_tree_root(slot), domain=get_domain(
+            spec, state, spec.DOMAIN_SELECTION_PROOF, epoch=epoch)).tree_root()
+        env = compute_signing_root(msg, get_domain(spec, state, spec.DOMAIN_AGGREGATE_AND_PROOF,
+                                                   epoch=epoch))
+        return (bytes(msg.selection_proof) == signed(sel, sk)
+                and bytes(sap.signature) == signed(env, sk) and attestation_ok(msg.aggregate))
+
+    def sync_ok(m) -> bool:
+        root = sync_committee_signing_root(spec, state, int(m.slot), bytes(m.beacon_block_root))
+        return bytes(m.signature) == signed(root, secret_key(int(m.validator_index)))
+
+    check = {"attestations": attestation_ok, "aggregates": aggregate_ok, "sync": sync_ok}
+    return {route: [check[route](obj) for obj, _ in res] for route, res in results.items()}
+
+
+def _vc_verdict_gate(what: str, spec, state, secret_key, nv, rejected: frozenset = frozenset()) -> dict:
+    """Every object the node judged, as the oracle judges it, the oracle's
+    False exactly at ``rejected`` ((route, position) pairs); the counts per
+    route."""
+    oracle = _oracle_verdicts(spec, state, secret_key, nv.results)
+    for route, res in nv.results.items():
+        node = [not isinstance(v, Exception) for _, v in res]
+        want = [(route, j) not in rejected for j in range(len(res))]
+        if node != oracle[route] or oracle[route] != want:
+            raise RuntimeError(f"{what}: {route} node verdicts {node}, oracle {oracle[route]}, "
+                               f"expected {want}")
+    return {route: len(res) for route, res in nv.results.items()}
+
+
+def vc_phase(spec, chain, node_a, sk0: int, dev) -> dict:
+    """Phase 21 (a): a validator client against node A at full width. VC_KEYS
+    keys of A's registry (``sk0 + i`` is validator i's; one per 64
+    validators below 2^16, where the registry leaves no free range of
+    1,008): a contiguous range, and VC_SYNC_KEYS members of the current sync
+    committee, none seen attesting in the head epoch nor proposing at the
+    driven slots (the range holds no other sync-committee member where the
+    registry leaves such a range). A ``ProductionValidatorClient`` (the port's
+    ``ValidatorStore``, ``BeaconNodeFallback`` and services) over a
+    ``BeaconApiServer`` on A, its API client given VC_TIMEOUT_S instead of
+    the 10 s that ``vc`` gives it (the epoch-after duty routes take 17-22 s
+    at 2^20; with the default every poll times out, ROADMAP Queue 3):
+    ``run_slot`` for VC_SLOTS slots of A's clock after its head (duties
+    poll, attestations, selection proofs and aggregates, sync messages),
+    every publish over HTTP and answered 200; one more POST of an
+    attestation carrying another's signature answered 400; A's verdict on
+    each object equal to the oracle's (False exactly for that one), the
+    valid attestations in A's op pool, bls_device and epoch_device (the
+    lookahead duties cross a boundary) clean, no plain version; the last
+    slot under the profiler. A second ``ValidatorStore`` on the same
+    slashing database is refused a double vote and nothing reaches the
+    node; one doppelganger liveness check over the keys is timed and finds
+    exactly the keys A saw attest. Counts are set to 0 before the part and
+    read after it (``runs["vc"]``)."""
+    import logging
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from lighthouse_tpu_torch import bls, resilience
+    from lighthouse_tpu_torch import state_transition as st
+    from lighthouse_tpu_torch.api_client import BeaconNodeHttpClient
+    from lighthouse_tpu_torch.http_api import BeaconApiServer
+    from lighthouse_tpu_torch.ops.bls import fused_mul as fm
+    from lighthouse_tpu_torch.oracle.fields import R
+    from lighthouse_tpu_torch.validator_client import DoppelgangerService, NotSafe, ValidatorStore
+    from lighthouse_tpu_torch.validator_client import validator_store as vstore
+    from lighthouse_tpu_torch.validator_client.runner import ProductionValidatorClient
+
+    def check(ok, what):
+        if not ok:
+            raise RuntimeError(f"vc: {what}")
+
+    def secret_key(i):
+        return sk0 + i
+
+    out, ms, patches = {}, {}, _Patches()
+    state, spe = chain.head.state, spec.preset.SLOTS_PER_EPOCH
+    head_slot, n_val = int(chain.head.slot), len(state.validators)
+    n_keys = min(VC_KEYS, n_val // 64)
+    check(n_keys > VC_SYNC_KEYS, f"{n_val} validators are too few for a validator client")
+    slots = [head_slot + 1 + k for k in range(VC_SLOTS)]
+    epoch = head_slot // spe
+    check(slots[-1] // spe == epoch, f"slots {slots} leave the head's epoch {epoch}")
+
+    # the keys: none seen attesting this epoch, none proposing at the slots
+    t = time.time()
+    bad = np.zeros(n_val, dtype=bool)
+    bad[sorted(chain._observed_attesters.get(epoch, ()))] = True
+    proposers = [int(st.get_beacon_proposer_index(spec, state, slot=s)) for s in slots]
+    bad[proposers] = True
+    members = [chain.pubkey_cache.get_index(bytes(pk)) for pk in state.current_sync_committee.pubkeys]
+    sync_keys = [v for v in dict.fromkeys(members) if not bad[v]][:VC_SYNC_KEYS]
+    check(len(sync_keys) == VC_SYNC_KEYS, "too few sync-committee members free")
+    n_range = n_keys - len(sync_keys)
+    for excluded in (members, sync_keys):  # no other member in the range, if the registry allows
+        bad_r = bad.copy()
+        bad_r[excluded] = True
+        csum = np.concatenate([[0], np.cumsum(bad_r, dtype=np.int64)])
+        free = np.flatnonzero(csum[n_range:] == csum[:-n_range])
+        if free.size:
+            break
+    check(free.size, "no free key range")
+    first = int(free[0])
+    indices = sync_keys + list(range(first, first + n_range))
+    n_sync = len(set(indices) & set(members))
+    out.update(keys=len(indices), range=[first, first + n_range - 1], sync_keys=sync_keys,
+               sync_duty_keys=n_sync,
+               slots=slots, head_slot=head_slot, validators=n_val,
+               observed_attesters=int(len(chain._observed_attesters.get(epoch, ()))))
+
+    server = BeaconApiServer(chain, op_pool=node_a.op_pool, network_service=node_a,
+                             load_monitor=node_a.load_monitor).start()
+    # not the 10 s that ``vc`` gives its client: the epoch-after duty routes outlast it at 2^20
+    client = BeaconNodeHttpClient(server.url, timeout=VC_TIMEOUT_S)
+    http = _HttpLog(client, patches)
+    vc = ProductionValidatorClient(spec, [client])
+    for i in indices:
+        vc.store.add_validator_sk(bls.SecretKey.from_bytes((secret_key(i) % R).to_bytes(32, "big")))
+    out["keys_s"] = time.time() - t
+    sign_ms = [0.0]
+    real_sign = vstore.SigningMethod.sign
+
+    def timed_sign(self, root):
+        t0 = time.perf_counter()
+        try:
+            return real_sign(self, root)
+        finally:
+            sign_ms[0] += (time.perf_counter() - t0) * 1e3
+
+    posts = [0]
+    real_post = server.publish_attestations
+
+    def counted_post(body):
+        posts[0] += 1
+        return real_post(body)
+
+    bls_sup, epoch_sup = resilience.bls_supervisor(), resilience.epoch_supervisor()
+    try:
+        t0 = time.perf_counter()
+        vc.connect()
+        ms["connect"] = (time.perf_counter() - t0) * 1e3
+        patches.set(vstore.SigningMethod, "sign", timed_sign)
+        patches.set(server, "publish_attestations", counted_post)
+        nv = _NodeVerdicts(chain, dev, patches)
+        bsnap, esnap = bls_sup.snapshot(), epoch_sup.snapshot()
+        fm.reset_counts()
+        slot_out = []
+        for k, s in enumerate(slots):
+            chain.slot_clock.set_slot(s)
+            since, sign_ms[0] = len(http.calls), 0.0
+            t0 = time.perf_counter()
+            if k == len(slots) - 1:  # the steady slot under the profiler
+                stats, prof_ms, dev_us, ops = _profiled(lambda: vc.run_slot(s))
+                busy = sum(dev_us.values()) / 1e3
+                prof = {"wall_ms": prof_ms, "busy_ms": busy, "aten_ops": ops,
+                        "idle_share": 1 - busy / prof_ms}
+            else:
+                stats = vc.run_slot(s)
+                prof = None
+            # the profiled slot's wall is the profiler's own (its report costs seconds after)
+            wall = prof["wall_ms"] if prof else (time.perf_counter() - t0) * 1e3
+            routes = http.by_route(since)
+            epoch_duties = vc.duties.attesters_at(s, epoch)
+            check(stats["attested"] == len(epoch_duties) > 0 and not stats["proposed"]
+                  and stats["sync_signed"] == n_sync
+                  and VC_PUBLISH_ROUTES["attestations"] in routes
+                  and VC_PUBLISH_ROUTES["sync"] in routes, f"slot {s}: {stats}")
+            slot_out.append({
+                "slot": s, "stats": stats, "wall_ms": wall, "sign_ms": sign_ms[0],
+                "duties_poll_ms": {r: routes[r]["ms"] for r in VC_DUTY_ROUTES if r in routes},
+                "duty_calls": [c for c in http.calls[since:] if c[0] in VC_DUTY_ROUTES],
+                "publish_ms": {k_: routes[r]["ms"] for k_, r in VC_PUBLISH_ROUTES.items()
+                               if r in routes},
+                "routes": routes, "profile": prof,
+            })
+        # one attestation carrying another's signature: 400, and the node's False on the card
+        atts = [a for a, _ in nv.results["attestations"]]
+        check(len(atts) >= 2, f"{len(atts)} attestations")
+        tampered = type(atts[0]).decode(type(atts[0]).encode(atts[0]))
+        tampered.signature = atts[1].signature
+        rejected = frozenset({("attestations", len(atts))})
+        t0 = time.perf_counter()
+        code, reply, _ = _http(server.url + "/eth/v1/beacon/pool/attestations", "POST",
+                               [{"data": "0x" + type(tampered).encode(tampered).hex()}])
+        _sync(dev)
+        ms["tampered_post"] = (time.perf_counter() - t0) * 1e3
+        failures = json.loads(json.loads(reply)["message"]) if code == 400 else None
+        check(failures is not None and [f["index"] for f in failures] == [0]
+              and len(nv.results["attestations"]) == len(atts) + 1,
+              f"the tampered attestation: HTTP {code}, {reply[:300]!r}")
+        check(vc.duties.validator_indices() == {bytes(state.validators[i].pubkey): i for i in indices},
+              "the duties service's indices")
+        _clean(bsnap, bls_sup.snapshot(), None, "bls_device")
+        _clean(esnap, epoch_sup.snapshot(), None, "epoch_device")  # the lookahead duties' boundary
+
+        # a second store on the same slashing database: a double vote is refused, nothing posted
+        att0 = nv.results["attestations"][0][0]
+        committee = st.get_beacon_committee(spec, state, int(att0.data.slot), int(att0.data.index))
+        voter = int(committee[int(np.flatnonzero(np.asarray(att0.aggregation_bits))[0])])
+        twin = ValidatorStore(spec, slashing_db=vc.store.slashing_db)
+        pk = twin.add_validator_sk(bls.SecretKey.from_bytes((secret_key(voter) % R).to_bytes(32, "big")))
+        other = type(att0.data).decode(type(att0.data).encode(att0.data))
+        other.beacon_block_root = bytes(32)
+        fork_info = vc.ctx.fork_info()
+        n_calls, n_posts = len(http.calls), posts[0]
+        try:
+            twin.sign_attestation(pk, other, fork_info)
+            refused = False
+        except NotSafe:
+            refused = True
+        check(refused and len(http.calls) == n_calls and posts[0] == n_posts,
+              "a second store on the slashing database signed a double vote")
+
+        # one doppelganger liveness check over the keys
+        watched = SimpleNamespace(validators=dict.fromkeys(vc.store.validators),
+                                  doppelganger_suspect=set())
+        dg = DoppelgangerService(watched, vc.client)
+        dg.register_all(epoch)
+        quiet = logging.getLogger("lighthouse_tpu_torch.doppelganger")
+        level = quiet.level
+        quiet.setLevel(logging.CRITICAL)  # one alert line per live key otherwise
+        try:
+            t0 = time.perf_counter()
+            dg.check(epoch + 1, vc.duties.validator_indices())
+            ms["doppelganger_check"] = (time.perf_counter() - t0) * 1e3
+        finally:
+            quiet.setLevel(level)
+    finally:
+        patches.undo()
+        server.stop()
+    runs = {"vc": _read_counts("vc: the validator client over node A")}
+
+    counts = _vc_verdict_gate("vc", spec, state, secret_key, nv, rejected)
+    valid = [(att, indexed) for att, indexed in nv.results["attestations"]
+             if not isinstance(indexed, Exception)]
+    voted = set()
+    for att, indexed in valid:
+        voted.update(int(i) for i in indexed.attesting_indices)
+    check(set(dg.detected()) == {bytes(state.validators[i].pubkey) for i in voted},
+          "the doppelganger check did not find exactly the keys A saw attest")
+    for att, _ in valid:
+        entry = node_a.op_pool._attestations.get(type(att.data).hash_tree_root(att.data))
+        bits = np.asarray(att.aggregation_bits, dtype=bool)
+        pooled = np.zeros(bits.size, dtype=bool)
+        for b, _sig in (entry[1] if entry else ()):
+            pooled |= np.asarray(b, dtype=bool)
+        check(pooled[bits].all(), f"an attestation of slot {int(att.data.slot)} is not in A's op pool")
+    out.update(ms=ms, slots_out=slot_out, judged=counts, verify_calls=nv.calls,
+               verify_ms=nv.verify_ms, double_vote_refused=True, tampered_rejected=True,
+               client_timeout_s=VC_TIMEOUT_S,
+               doppelganger_detected=len(dg.detected()), runs=runs)
+    poll = {r: sum(s_["duties_poll_ms"].get(r, 0.0) for s_ in slot_out) for r in VC_DUTY_ROUTES}
+    log(f"vc over node A ({n_val} validators, head slot {head_slot}): {len(indices)} keys (range "
+        f"{first}-{first + n_range - 1} and {len(sync_keys)} sync-committee members; "
+        f"{n_sync} with sync duties) in "
+        f"{out['keys_s']:.2f} s; slots {slots}: "
+        + "; ".join(f"{s_['slot']}: {json.dumps(s_['stats'])} in {s_['wall_ms']:.1f} ms (sign "
+                    f"{s_['sign_ms']:.1f} ms, publish "
+                    f"{json.dumps({k: round(v, 1) for k, v in s_['publish_ms'].items()})})"
+                    for s_ in slot_out)
+        + f"; duties poll (ms) {json.dumps({k: round(v, 1) for k, v in poll.items()})}; judged "
+        f"{json.dumps(counts)}, every verdict the oracle's; bls calls {json.dumps(nv.calls)}; "
+        f"profiled slot: busy {slot_out[-1]['profile']['busy_ms']:.2f} of "
+        f"{slot_out[-1]['profile']['wall_ms']:.1f} ms, idle share "
+        f"{slot_out[-1]['profile']['idle_share']:.5f}; double vote refused with no request; "
+        f"doppelganger check {ms['doppelganger_check']:.2f} ms ({len(dg.detected())} live); "
+        f"the tampered attestation 400 in {ms['tampered_post']:.1f} ms; client timeout "
+        f"{VC_TIMEOUT_S:.0f} s; launches {json.dumps(runs['vc']['by'])}")
+    return out
+
+
+def vc_cli_phase(c, dev, root: str) -> dict:
+    """Phase 21 (b): the CLI's validator client on phase 19 (b)'s ``bn``
+    node ``c`` (64 interop keys, minimal, electra), before its restart. ``account-manager`` and
+    ``validator-manager create`` each write VC_CLI_KEYS EIP-2335 keystores
+    (scrypt); a ``vc`` parsed by ``cli.build_parser()`` and built by
+    ``cli.run_vc`` loads the first's keystores, interop keys 0-55 and, through
+    ``--web3signer-url``, keys 56-63 from a ``MockWeb3Signer``, and serves
+    its keymanager on an ephemeral port; ``validator-manager import`` and
+    ``list`` go through it. ``run_slot`` for the current slot: the VC
+    proposes (the node imports the block in one bls batch on the card, its
+    head the block) and its attesters, aggregator and sync-committee
+    members publish (each verdict the oracle's); remote keys sign real
+    duties. A ``WatchService`` records the slot and its ``WatchServer``
+    answers the head's root; a second proposal for the slot is refused by
+    slashing protection before any HTTP request. Counts are set to 0 before
+    the part and read after it (``runs["vc_cli"]``)."""
+    import contextlib
+    import io
+    import urllib.request
+
+    from lighthouse_tpu_torch import bls, cli
+    from lighthouse_tpu_torch.keys import derive_sk_from_path
+    from lighthouse_tpu_torch.ops.bls import fused_mul as fm
+    from lighthouse_tpu_torch.oracle import ciphersuite as cs
+    from lighthouse_tpu_torch.oracle import curves as oc
+    from lighthouse_tpu_torch.state_transition.genesis import interop_secret_keys
+    from lighthouse_tpu_torch.validator_client import MockWeb3Signer, NotSafe
+    from lighthouse_tpu_torch.validator_client import web3signer
+    from lighthouse_tpu_torch.watch import WatchDB, WatchServer, WatchService
+
+    def check(ok, what):
+        if not ok:
+            raise RuntimeError(f"vc cli: {what}")
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        return res
+
+    def quiet(fn):
+        """``fn()`` with what it prints captured: (result, printed JSON)."""
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            res = fn()
+        return res, json.loads(buf.getvalue())
+
+    chain, ms, patches = c.chain, {}, _Patches()
+    spec, url = chain.spec, c.http_server.url
+    n_keys = len(chain.head.state.validators)
+    sks = interop_secret_keys(n_keys)
+    parser = cli.build_parser()
+    forks = [a for f in ("altair", "bellatrix", "capella", "deneb", "electra")
+             for a in (f"--{f}-fork-epoch", "0")]
+    am_dir, vm_dir = os.path.join(root, "am"), os.path.join(root, "vm")
+    fm.reset_counts()
+
+    def derived(i):
+        sk = derive_sk_from_path(bytes.fromhex(VC_SEED), f"m/12381/3600/{i}/0/0")
+        return "0x" + oc.g1_compress(cs.sk_to_pk(sk)).hex()
+
+    _, wrote = timed("account_manager", lambda: quiet(lambda: cli.run_account_manager(parser.parse_args(
+        ["am", "--output-dir", am_dir, "--count", str(VC_CLI_KEYS), "--password", "pw",
+         "--mnemonic-seed", VC_SEED]))))
+    check(len(wrote["wrote"]) == VC_CLI_KEYS, f"account-manager wrote {wrote}")
+    _, wrote = timed("vm_create", lambda: quiet(lambda: cli.run_validator_manager(parser.parse_args(
+        ["vm", "create", "--output-dir", vm_dir, "--count", str(VC_CLI_KEYS), "--first-index",
+         str(VC_CLI_KEYS), "--password", "pw", "--mnemonic-seed", VC_SEED]))))
+    check(len(wrote["wrote"]) == VC_CLI_KEYS, f"validator-manager create wrote {wrote}")
+    n_local = n_keys - VC_CLI_REMOTE
+    signer = MockWeb3Signer([bls.SecretKey.from_bytes(sk.to_bytes(32, "big"))
+                             for sk in sks[n_local:]]).start()
+    vc = None
+    remote = [0]
+    real_remote = web3signer.Web3SignerMethod.sign
+
+    def counted_remote(self, root):
+        remote[0] += 1
+        return real_remote(self, root)
+
+    try:
+        vc = timed("vc_build", lambda: cli.run_vc(parser.parse_args(
+            ["vc", "--preset", "minimal", *forks, "--beacon-node", url, "--validators-dir", am_dir,
+             "--password", "pw", "--interop-validators", str(n_local), "--web3signer-url",
+             signer.url, "--keymanager-port", "0"])))
+        km = vc.keymanager.url
+        _, imported = timed("vm_import", lambda: quiet(lambda: cli.run_validator_manager(
+            parser.parse_args(["vm", "import", "--keystores-dir", vm_dir, "--password", "pw",
+                               "--vc-url", km]))))
+        check(imported == [{"status": "imported"}] * VC_CLI_KEYS, f"validator-manager import: {imported}")
+        _, listed = timed("vm_list", lambda: quiet(lambda: cli.run_validator_manager(
+            parser.parse_args(["vm", "list", "--vc-url", km]))))
+        local = {"0x" + bls.SecretKey.from_bytes(sk.to_bytes(32, "big")).public_key().serialize().hex()
+                 for sk in sks[:n_local]}
+        local |= {derived(i) for i in range(2 * VC_CLI_KEYS)}
+        check({d["validating_pubkey"] for d in listed} == local and len(listed) == len(local),
+              f"validator-manager list: {len(listed)} keystores")
+        check(len(vc.keymanager.list_remotekeys()) == VC_CLI_REMOTE, "the remote keys")
+
+        # the current slot's duties
+        while chain.current_slot() <= int(chain.head.slot):
+            time.sleep(0.2)
+        slot = chain.current_slot()
+        http = _HttpLog(vc.client.candidates[0].client, patches)
+        nv = _NodeVerdicts(chain, dev, patches)
+        patches.set(web3signer.Web3SignerMethod, "sign", counted_remote)
+        batches, in_block = [], [False]
+        real_verify, real_import = bls.verify_signature_sets, chain.process_block
+
+        def counting(sets, *, device=None):
+            sets = list(sets)
+            if in_block[0]:
+                batches.append(len(sets))
+            return real_verify(sets, device=device)
+
+        def importing(*a, **k):  # the block's own bls batches, apart from the gossip routes'
+            in_block[0] = True
+            try:
+                return real_import(*a, **k)
+            finally:
+                in_block[0] = False
+
+        patches.set(bls, "verify_signature_sets", counting)
+        patches.set(chain, "process_block", importing)
+        stats = timed("run_slot", lambda: vc.run_slot(slot))
+        _sync(dev)
+        patches.undo()
+        routes = http.by_route()
+        head = chain.head
+        block = chain.get_signed_block(head.root).message
+        duty = vc.duties.proposers_at(slot, slot // spec.preset.SLOTS_PER_EPOCH)[0]
+        check(stats["proposed"] and int(head.slot) == slot and int(block.proposer_index)
+              == duty.validator_index and len(batches) == 1,
+              f"slot {slot}: {stats}, head slot {int(head.slot)}, bls batches {batches}")
+        check(stats["attested"] > 0 and stats["aggregated"] > 0 and stats["sync_signed"] > 0
+              and remote[0] > 0, f"slot {slot}: {stats}, {remote[0]} remote signatures")
+        counts = _vc_verdict_gate("vc cli", spec, head.state, lambda i: sks[i], nv)
+        check(counts == {"attestations": stats["attested"], "aggregates": stats["aggregated"],
+                         "sync": stats["sync_signed"]}, f"judged {counts}, published {stats}")
+
+        # watch records the slot; its server answers the head's root
+        wdb = WatchDB()
+        rows = timed("watch_update", lambda: WatchService(wdb, url, spec).update())
+        wserver = WatchServer(wdb).start()
+        try:
+            code, body, _ = _http(wserver.url + "/v1/slots/highest")
+            got = json.loads(body)["data"] if code == 200 else None
+            code2, body2, _ = _http(wserver.url + f"/v1/blocks/{slot}")
+            blk = json.loads(body2)["data"] if code2 == 200 else None
+        finally:
+            wserver.stop()
+            wdb.close()
+        check(got == {"slot": slot, "root": "0x" + head.root.hex(), "skipped": False}
+              and blk is not None and blk["proposer_index"] == duty.validator_index,
+              f"watch: {got}, {blk}")
+
+        # a second proposal for the slot: refused before any request
+        fork_info = vc.ctx.fork_info()
+        other = type(block).decode(type(block).encode(block))
+        other.body.graffiti = b"\x01" * 32
+        n_open = [0]
+        real_open = urllib.request.urlopen
+
+        def counted_open(*a, **k):
+            n_open[0] += 1
+            return real_open(*a, **k)
+
+        patches.set(urllib.request, "urlopen", counted_open)
+        try:
+            vc.store.sign_block(duty.pubkey, other, fork_info)
+            refused = False
+        except NotSafe:
+            refused = True
+        finally:
+            patches.undo()
+        check(refused and n_open[0] == 0, f"the second proposal: refused {refused}, "
+              f"{n_open[0]} requests")
+    finally:
+        patches.undo()
+        if vc is not None:
+            vc.stop()
+            vc.keymanager.stop()
+        signer.stop()
+    runs = {"vc_cli": _read_counts("vc cli: the CLI's validator client on the bn node")}
+    out = {"slot": slot, "stats": stats, "ms": ms, "routes": routes, "judged": counts,
+           "verify_calls": nv.calls, "verify_ms": nv.verify_ms, "block_sets": batches[0],
+           "remote_signatures": remote[0], "imported": imported, "keystores_listed": len(listed),
+           "watch_rows": rows, "runs": runs}
+    log(f"vc cli on the bn node ({n_keys} interop keys): keystores am {ms['account_manager']:.0f} ms, "
+        f"vm create {ms['vm_create']:.0f} ms, vc built {ms['vc_build']:.0f} ms ({n_local} interop, "
+        f"{VC_CLI_KEYS} keystores, {VC_CLI_REMOTE} remote), vm import {ms['vm_import']:.0f} ms, list "
+        f"{len(listed)}; slot {slot}: {json.dumps(stats)} in {ms['run_slot']:.1f} ms (block of "
+        f"{batches[0]} sets in one bls batch on the card, the head; {remote[0]} remote signatures; "
+        f"judged {json.dumps(counts)}, every verdict the oracle's); watch {rows} rows in "
+        f"{ms['watch_update']:.1f} ms, the head's root served; a second proposal refused with no "
+        f"request; launches {json.dumps(runs['vc_cli']['by'])}")
     return out
 
 
@@ -4520,12 +5150,14 @@ def chain_timing(name: str, rows: int, dev, gen) -> dict:
     }
 
 
-def timed_rows(path_logs: dict, dev, gen, largest=()) -> list:
+def timed_rows(path_logs: dict, dev, gen, largest=(), known=None) -> list:
     """For each path's launch log, each schedule and chain timed at its
     most-launched row count there, and for the paths in ``largest`` at its
     largest row count too (one timing per (kind, name, rows) over all
     paths). Each row records the paths that chose it and, per path, the
-    launches at that row count."""
+    launches at that row count. A (kind, name, rows) in ``known`` (earlier
+    rows by that key) is not timed again: its timing is copied, marked
+    ``reused``."""
     chosen: dict = {}
     for path, shapes in path_logs.items():
         per_name: dict = {}
@@ -4542,7 +5174,9 @@ def timed_rows(path_logs: dict, dev, gen, largest=()) -> list:
                 }
     out = []
     for (kind, name, rows), paths in sorted(chosen.items(), key=lambda kv: (kv[0][0], kv[0][1], kv[0][2])):
-        if kind == "CHAIN":
+        if known and (kind, name, rows) in known:
+            r = {**known[(kind, name, rows)], "reused": True}
+        elif kind == "CHAIN":
             r = chain_timing(name, rows, dev, gen)
         else:
             r = plan_timing(name, rows, dev, gen)
@@ -5183,24 +5817,43 @@ def main() -> int:
     log(f"restart: every shape checked in phase 4 ({n_new} new); phase {rm['phase_s']:.1f} s")
 
     # 19. the client surface: the Beacon API over node A, then the CLI at interop size
+    # (phase 21 runs on phase 19's nodes: its part (a) after 19 (a), its part (b) on 19 (b)'s node)
     t = time.time()
     am = api_phase(espec, chain, node_a, sk0, dev)
-    del chain, node_a
     runs.update(am.pop("runs"))
     unseen = sorted(s for s in runs["api"]["log"] if s not in done)
     if unseen:
         raise RuntimeError(f"api: shapes phase 4 did not check: {unseen}")
     am["phase_s"] = time.time() - t
+
+    # 21 (a). an operator's validator client against node A
+    t = time.time()
+    va = vc_phase(espec, chain, node_a, sk0, dev)
+    del chain, node_a
+    runs.update(va.pop("runs"))
+    va["phase_s"] = time.time() - t
+
     t = time.time()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as cli_dir:
-        cm = cli_phase(dev, cli_dir)
+        cm = cli_phase(dev, cli_dir)  # 21 (b), the CLI's validator client, runs inside it
+    vb = cm.pop("vc_cli")
     runs.update(cm.pop("runs"))
-    cm["phase_s"] = time.time() - t
+    runs.update(vb.pop("runs"))
+    cm["phase_s"] = time.time() - t - vb["phase_s"]
     api_runs = ("api", "cli_publish")
     n_new = sum(exact_checks(runs[k]["log"], dev, gen, done) for k in api_runs)
     log(f"client surface: launches {json.dumps({k: runs[k]['by'] for k in api_runs})}; the API's "
         f"every shape checked in phase 4, {n_new} new shapes (the CLI node's) checked exact; "
         f"api {am['phase_s']:.1f} s, cli {cm['phase_s']:.1f} s")
+    vc_runs = ("vc", "vc_cli")
+    n_new = sum(exact_checks(runs[k]["log"], dev, gen, done) for k in vc_runs)
+    known = {(r["kind"], r["name"], r["rows"]): r for r in krows}
+    vc_rows = timed_rows({k: runs[k]["log"] for k in vc_runs}, dev, gen, known=known)
+    krows += vc_rows
+    log(f"validator client: launches {json.dumps({k: runs[k]['by'] for k in vc_runs})}; {n_new} new "
+        f"shapes checked exact; {sum(1 for r in vc_rows if not r.get('reused'))} of "
+        f"{len(vc_rows)} kernel rows timed anew; (a) {va['phase_s']:.1f} s, (b) "
+        f"{vb['phase_s']:.1f} s")
 
     # 20. the spec vectors on the card, native beside the device, ENR discovery
     t = time.time()
@@ -5275,6 +5928,8 @@ def main() -> int:
                 "restart": {**rm, "launches": {k: runs[k]["by"] for k in restart_runs}},
                 "client": {"api": am, "cli": cm,
                            "launches": {k: runs[k]["by"] for k in api_runs}},
+                "validator_client": {"a": va, "b": vb,
+                                     "launches": {k: runs[k]["by"] for k in vc_runs}},
                 "vectors": {**vm, "discovery": dm,
                             "launches": {k: runs[k]["by"] for k in vector_runs}},
             }, f, indent=1)

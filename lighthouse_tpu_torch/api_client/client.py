@@ -7,6 +7,8 @@ import urllib.error
 import urllib.request
 from dataclasses import dataclass
 
+ID_CHUNK = 256  # pubkeys per ``id=`` query: 256 x 99 characters ~ 25 KB
+
 
 class ApiClientError(Exception):
     def __init__(self, code: int, message: str):
@@ -104,8 +106,19 @@ class BeaconNodeHttpClient:
             for k, v in d.items()
         }
 
-    def get_validator_indices(self) -> dict[bytes, int]:
-        d = self._get("/eth/v1/beacon/states/head/validators")["data"]
+    def get_validator_indices(self, pubkeys=None) -> dict[bytes, int]:
+        """pubkey -> index. With no ``pubkeys``, the whole registry (one GET
+        of every validator); with ``pubkeys``, only those the head state
+        holds, asked for through the ``id=`` filter in chunks of
+        ``ID_CHUNK`` that keep each request line well under the servers'
+        64 KiB limit."""
+        if pubkeys is None:
+            d = self._get("/eth/v1/beacon/states/head/validators")["data"]
+        else:
+            keys, d = [_hex(pk) for pk in pubkeys], []
+            for i in range(0, len(keys), ID_CHUNK):
+                d += self._get("/eth/v1/beacon/states/head/validators?id="
+                               + ",".join(keys[i:i + ID_CHUNK]))["data"]
         return {
             _unhex(v["validator"]["pubkey"]): int(v["index"]) for v in d
         }

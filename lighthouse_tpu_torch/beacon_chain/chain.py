@@ -20,7 +20,8 @@ sampling (``enable_peerdas``) decides availability from columns verified by
 ``beacon_chain.data_columns`` through the port's ``kzg`` engine. On a
 durable store (a WAL ``LevelStore``) every import persists fork choice
 (``fork_choice.persistence``); ``recovery.recover_node_state`` restarts a
-node from it. The mesh planner is None (the mesh is off; item 2).
+node from it. The mesh planner is None (the mesh is off until
+multi-GPU serving, ROADMAP Queue 1 item 6).
 The light-client server cache (``light_client.LightClientServerCache``)
 rides the block-observer seam and persists its update archive in the hot
 store.
@@ -974,7 +975,7 @@ class BeaconChain:
     def _build_mesh_planner(self):
         """None: the mesh is off, the only state the port has until the
         sharded serving tier comes with multi-GPU serving (ROADMAP Queue 1
-        item 2)."""
+        item 6)."""
         return None
 
     def _batch_verify_items_inner(self, items) -> bool:

@@ -3,21 +3,28 @@ the port's copy of ``lighthouse_tpu/cli.py``.
 
 ``python -m lighthouse_tpu_torch <subcommand>``:
 
-  bn                     run a beacon node (HTTP API + metrics + optional slasher)
-  boot-node              UDP discovery rendezvous, or an ENR discovery node
-  database-manager (dm)  inspect / version / migrate / compact the stores
-  lcli                   skip-slots, transition-blocks, pretty-ssz
-  version                print the version
+  bn                      run a beacon node (HTTP API + metrics + optional slasher)
+  vc                      run a validator client against a beacon node
+  account-manager (am)    create EIP-2335 validator keystores
+  validator-manager (vm)  bulk create / import / list validators
+  boot-node               UDP discovery rendezvous, or an ENR discovery node
+  database-manager (dm)   inspect / version / migrate / compact the stores
+  lcli                    skip-slots, transition-blocks, pretty-ssz
+  version                 print the version
 
 Global flags select the spec preset, the debug level, the device and the
 ``bls`` and epoch backends. ``--device`` (default ``cuda``) is where the
 node runs; ``cpu`` must be named — nothing drops to the CPU on its own.
+``vc``, ``account-manager`` and ``validator-manager`` do no device work and
+take no ``--device``: a validator client signs on the host and its beacon
+node verifies.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 from . import __version__
@@ -47,7 +54,7 @@ def _spec(args):
     return mainnet_spec(**kwargs) if kwargs else mainnet_spec()
 
 
-def _add_spec_flags(p):
+def _add_spec_flags(p, device: bool = True):
     p.add_argument(
         "--preset", choices=("mainnet", "minimal"), default="mainnet",
         help="compile-time preset analog (EthSpec selection)",
@@ -66,11 +73,12 @@ def _add_spec_flags(p):
              "registry mirror on --device (the default), numpy = the "
              "columnar host path. Unset = keep the process's current backend.",
     )
-    p.add_argument(
-        "--device", default="cuda",
-        help="torch device the node runs on (cuda, cuda:N or cpu); without "
-             "CUDA the default refuses to start",
-    )
+    if device:
+        p.add_argument(
+            "--device", default="cuda",
+            help="torch device the node runs on (cuda, cuda:N or cpu); "
+                 "without CUDA the default refuses to start",
+        )
     for fork in ("altair", "bellatrix", "capella", "deneb", "electra"):
         p.add_argument(f"--{fork}-fork-epoch", type=int, default=None)
 
@@ -117,6 +125,55 @@ def build_parser() -> argparse.ArgumentParser:
         help="boot from another node's finalized state over HTTP instead of "
              "genesis (client/src/builder.rs checkpoint-sync branch)",
     )
+
+    vc = sub.add_parser("vc", help="validator client")
+    _add_spec_flags(vc, device=False)
+    vc.add_argument(
+        "--beacon-node", default="http://127.0.0.1:5052",
+        help="beacon node URL(s), comma-separated for health-scored failover "
+             "(beacon_node_fallback)",
+    )
+    vc.add_argument("--validators-dir", default=None)
+    vc.add_argument("--password", default="")
+    vc.add_argument("--interop-validators", type=int, default=0)
+    vc.add_argument(
+        "--enable-doppelganger-protection", action="store_true",
+        help="hold back signing until liveness checks show no duplicate "
+             "instance of our keys (doppelganger_service)",
+    )
+    vc.add_argument(
+        "--keymanager-port", type=int, default=None,
+        help="serve the keymanager API (keystores/remotekeys CRUD) on this "
+             "port (0 = ephemeral)",
+    )
+    vc.add_argument(
+        "--web3signer-url", default=None,
+        help="register all keys served by this remote signer "
+             "(signing_method/web3signer)",
+    )
+
+    am = sub.add_parser("account-manager", aliases=["am"],
+                        help="create validator keystores")
+    _add_spec_flags(am, device=False)
+    am.add_argument("--output-dir", required=True)
+    am.add_argument("--count", type=int, default=1)
+    am.add_argument("--password", required=True)
+    am.add_argument("--mnemonic-seed", default=None,
+                    help="hex seed for EIP-2333 derivation (random if unset)")
+
+    vm = sub.add_parser(
+        "validator-manager", aliases=["vm"],
+        help="bulk create/import validators (Lighthouse's validator_manager/)",
+    )
+    _add_spec_flags(vm, device=False)
+    vm.add_argument("command_vm", choices=("create", "import", "list"))
+    vm.add_argument("--output-dir")
+    vm.add_argument("--keystores-dir")
+    vm.add_argument("--count", type=int, default=1)
+    vm.add_argument("--first-index", type=int, default=0)
+    vm.add_argument("--password", default="")
+    vm.add_argument("--mnemonic-seed", default=None)
+    vm.add_argument("--vc-url", help="running VC keymanager API url")
 
     boot = sub.add_parser(
         "boot-node", help="UDP discovery rendezvous (Lighthouse's boot_node/)"
@@ -188,6 +245,87 @@ def run_bn(args) -> "object":
     return builder.build().start()
 
 
+def run_vc(args):
+    """Build a validator client from parsed ``vc`` arguments, load its keys
+    (keystores, interop, Web3Signer) and connect it to its beacon node(s)."""
+    from .utils.logging import init_logging
+    from .validator_client.runner import ProductionValidatorClient
+
+    init_logging(args.debug_level)
+    spec = _spec(args)
+    vc = ProductionValidatorClient(
+        spec, args.beacon_node,
+        enable_doppelganger=args.enable_doppelganger_protection,
+        keymanager_port=args.keymanager_port,
+    )
+    if args.validators_dir:
+        vc.load_keystore_dir(args.validators_dir, args.password)
+    if args.interop_validators:
+        vc.load_interop_keys(args.interop_validators)
+    if args.web3signer_url:
+        vc.load_web3signer(args.web3signer_url)
+    return vc.connect()
+
+
+def run_account_manager(args) -> list[str]:
+    """Derive EIP-2333 keys and write EIP-2335 keystores
+    (account_manager validator create)."""
+    from .keys.derivation import derive_sk_from_path
+    from .keys.keystore import Keystore
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    seed = (
+        bytes.fromhex(args.mnemonic_seed)
+        if args.mnemonic_seed
+        else os.urandom(32)
+    )
+    written = []
+    for i in range(args.count):
+        path = f"m/12381/3600/{i}/0/0"
+        sk = derive_sk_from_path(seed, path)
+        ks = Keystore.encrypt(
+            sk.to_bytes(32, "big"),
+            args.password,
+            path=path,
+        )
+        name = f"keystore-{i}.json"
+        with open(os.path.join(args.output_dir, name), "w") as fh:
+            fh.write(ks.to_json())
+        written.append(name)
+    print(json.dumps({"wrote": written, "dir": args.output_dir}))
+    return written
+
+
+def run_validator_manager(args) -> int:
+    """The ``validator-manager`` subcommands over ``tools.vm``."""
+    from .tools import vm
+
+    need = {
+        "create": ("output_dir",),
+        "import": ("keystores_dir", "vc_url"),
+        "list": ("vc_url",),
+    }[args.command_vm]
+    missing = [n for n in need if not getattr(args, n)]
+    if missing:
+        build_parser().error(
+            f"validator-manager {args.command_vm} requires "
+            + ", ".join("--" + n.replace("_", "-") for n in missing)
+        )
+    if args.command_vm == "create":
+        written = vm.vm_create(
+            args.output_dir, args.count, args.password,
+            args.mnemonic_seed, args.first_index,
+        )
+        print(json.dumps({"wrote": written, "dir": args.output_dir}))
+    elif args.command_vm == "import":
+        print(json.dumps(
+            vm.vm_import(args.keystores_dir, args.password, args.vc_url)
+        ))
+    else:
+        print(json.dumps(vm.vm_list(args.vc_url)))
+    return 0
+
+
 def run_lcli(args) -> int:
     """The ``lcli`` subcommands over ``tools.db`` (file in, file or JSON out).
     The state transition runs on the backends the spec flags select."""
@@ -238,6 +376,18 @@ def main(argv=None) -> int:
         client = run_bn(args)
         client.wait_for_shutdown()
         return 0
+    if args.command == "vc":
+        vc = run_vc(args)
+        try:
+            vc.run()
+        except KeyboardInterrupt:
+            vc.stop()
+        return 0
+    if args.command in ("account-manager", "am"):
+        run_account_manager(args)
+        return 0
+    if args.command in ("validator-manager", "vm"):
+        return run_validator_manager(args)
     if args.command in ("database-manager", "dm"):
         from .tools import db
 

@@ -1,1 +1,2 @@
-"""Operator and measurement tools: ``db`` (database manager, lcli), ``time_rows``."""
+"""Operator and measurement tools: ``db`` (database manager, lcli), ``vm``
+(validator manager), ``time_rows``."""

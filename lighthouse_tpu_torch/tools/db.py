@@ -1,6 +1,6 @@
 """Operator tooling: the database manager and the ``lcli`` dev utilities,
-the port's copy of ``lighthouse_tpu/tools.py`` (all but its validator
-manager, which waits for the port's ``keys/``).
+the port's copy of ``lighthouse_tpu/tools.py`` (its validator manager is
+``tools/vm.py``).
 
 Lighthouse's tool binaries:
 

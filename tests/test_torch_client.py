@@ -5,7 +5,8 @@ reference's.
 are the port's copies of the reference's modules. The parser offers ``bn``
 (with ``--boot-enrs``), ``boot-node`` (with ``--enr``), ``database-manager``,
 ``lcli`` and ``version`` with ``--device`` in place of ``--platform`` and
-the port's backend names; a node built with ``boot_enrs`` finds a reference
+the port's backend names, and ``vc``, ``account-manager`` and
+``validator-manager`` with the reference's arguments but ``--platform``; a node built with ``boot_enrs`` finds a reference
 node through an ENR boot node; ``ClientBuilder`` builds the reference's node
 in memory and on a datadir across a restart (the interop genesis reused,
 head and fork choice restored, equal to the reference client's on the same
@@ -144,11 +145,30 @@ def test_parser_surface():
         assert set(got) == (set(want) - {"platform"}) | {"device"}
         assert {k: v for k, v in got.items() if k != "device"} == {
             k: v for k, v in want.items() if k != "platform"}
+    # the validator client and its tools: the reference's arguments, no --platform and,
+    # as they do no device work, no --device
+    for argv in (["vc"],
+                 ["vc", "--beacon-node", "http://a:1,http://b:2", "--validators-dir", "v",
+                  "--password", "pw", "--interop-validators", "56", "--keymanager-port", "0",
+                  "--web3signer-url", "http://s:3", "--enable-doppelganger-protection",
+                  "--preset", "minimal", "--electra-fork-epoch", "0"],
+                 ["account-manager", "--output-dir", "o", "--password", "pw"],
+                 ["am", "--output-dir", "o", "--count", "2", "--password", "pw",
+                  "--mnemonic-seed", "ab"],
+                 ["validator-manager", "create", "--output-dir", "o", "--count", "2",
+                  "--first-index", "3", "--password", "pw", "--mnemonic-seed", "ab"],
+                 ["vm", "import", "--keystores-dir", "k", "--vc-url", "http://vc:1"],
+                 ["vm", "list", "--vc-url", "http://vc:1"]):
+        got, want = vars(p.parse_args(argv)), vars(r_parser().parse_args(argv))
+        assert "device" not in got and set(got) == set(want) - {"platform"}
+        assert got == {k: v for k, v in want.items() if k != "platform"}
+    assert p.parse_args(["vc", "--bls-backend", "native"]).bls_backend == "native"
     assert p.parse_args(["version"]).command == "version"
     for argv in (["bn", "--platform", "cpu"], ["bn", "--bls-backend", "tpu"],
                  ["bn", "--epoch-backend", "auto"], ["database-manager"],
                  ["database-manager", "prune", "--datadir", "d"], ["lcli"],
-                 ["vc"], ["account-manager"], ["validator-manager"], ["vm", "list"]):
+                 ["vc", "--device", "cpu"], ["vc", "--platform", "cpu"], ["account-manager"],
+                 ["am", "--output-dir", "o"], ["validator-manager"], ["vm", "delete"]):
         with pytest.raises(SystemExit):
             p.parse_args(argv)
 

@@ -1,12 +1,15 @@
 """The port's operator tools against the reference's.
 
-``lighthouse_tpu_torch.tools.db`` is the port's copy of the reference's
-``tools.py`` without its validator manager: the database manager (inspect,
-version, migrate, compact) and the ``lcli`` utilities (skip-slots,
-transition-blocks, pretty-ssz), reached through ``python -m
-lighthouse_tpu_torch database-manager`` (``dm``) and ``lcli``. On a port
-client's datadir both packages' database managers report the same columns
-and versions; on the same inputs both packages' lcli write the same bytes.
+``lighthouse_tpu_torch.tools.db`` and ``tools.vm`` are the port's copy of
+the reference's ``tools.py``: the database manager (inspect, version,
+migrate, compact), the ``lcli`` utilities (skip-slots, transition-blocks,
+pretty-ssz) and the validator manager (create, import, list), reached
+through ``python -m lighthouse_tpu_torch database-manager`` (``dm``),
+``lcli`` and ``validator-manager`` (``vm``). On a port client's datadir both
+packages' database managers report the same columns and versions; on the
+same inputs both packages' lcli write the same bytes; ``vm create`` and
+``account-manager`` write keystores of the keys the reference derives, and
+``vm import``/``list`` reach a port keymanager as the reference's do.
 """
 
 import json
@@ -157,3 +160,49 @@ def test_pretty_ssz_equals_the_reference(chain):
     rblock = r_for_preset("minimal").block_types["altair"].decode(raw)
     assert pretty == rtools._to_jsonable(rblock)
     assert pretty["message"]["slot"] == SLOTS
+
+
+def test_validator_manager_and_account_manager_equal_the_reference(tmp_path, capsys):
+    """``vm create`` and ``am`` write keystores of the keys the reference
+    derives; ``vm import`` and ``vm list`` reach a port keymanager, which
+    the reference's ``vm_list`` reads alike."""
+    from lighthouse_tpu.keys import derive_sk_from_path as r_derive
+    from lighthouse_tpu.ops.bls_oracle import ciphersuite as r_cs
+    from lighthouse_tpu.ops.bls_oracle import curves as r_oc
+    from lighthouse_tpu_torch.tools import vm as pvm
+    from lighthouse_tpu_torch.validator_client import KeymanagerServer, ValidatorStore
+
+    seed = "ab" * 32
+
+    def pubkey(i):
+        return r_oc.g1_compress(r_cs.sk_to_pk(r_derive(bytes.fromhex(seed),
+                                                         f"m/12381/3600/{i}/0/0"))).hex()
+
+    keys = tmp_path / "vm"
+    assert p_main(["vm", "create", "--output-dir", str(keys), "--count", "2", "--first-index",
+                   "3", "--password", "pw", "--mnemonic-seed", seed]) == 0
+    assert json.loads(capsys.readouterr().out) == {
+        "wrote": ["keystore-3.json", "keystore-4.json"], "dir": str(keys)}
+    made = [json.loads((keys / f"keystore-{i}.json").read_text()) for i in (3, 4)]
+    assert [(m["pubkey"], m["path"], m["crypto"]["kdf"]["function"]) for m in made] == [
+        (pubkey(i), f"m/12381/3600/{i}/0/0", "scrypt") for i in (3, 4)]
+    am_dir = tmp_path / "am"
+    assert p_main(["am", "--output-dir", str(am_dir), "--password", "pw", "--mnemonic-seed",
+                   seed]) == 0
+    assert json.loads(capsys.readouterr().out) == {"wrote": ["keystore-0.json"], "dir": str(am_dir)}
+    assert json.loads((am_dir / "keystore-0.json").read_text())["pubkey"] == pubkey(0)
+    km = KeymanagerServer(ValidatorStore(p_minimal())).start()
+    try:
+        assert p_main(["validator-manager", "import", "--keystores-dir", str(keys), "--password",
+                       "pw", "--vc-url", km.url]) == 0
+        assert json.loads(capsys.readouterr().out) == [{"status": "imported"}] * 2
+        listed = pvm.vm_list(km.url)
+        assert listed == rtools.vm_list(km.url)
+        assert sorted(d["validating_pubkey"] for d in listed) == ["0x" + pubkey(i) for i in (3, 4)]
+        assert p_main(["vm", "list", "--vc-url", km.url]) == 0
+        assert json.loads(capsys.readouterr().out) == listed
+    finally:
+        km.stop()
+    for argv in (["vm", "create"], ["vm", "import", "--vc-url", "x"], ["vm", "list"]):
+        with pytest.raises(SystemExit):
+            p_main(argv)
