@@ -233,7 +233,30 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      one bls batch on the card and the head, its attestations, aggregate and
      sync messages verified on the card; watch records the slot and serves
      the head's root; a second proposal refused before any request.
-Phases 8-10, 12-16 and 17-21 each set the counts to 0 before and read them after,
+ 22. the local network on the card: (a) the port's ``LocalNetwork`` of 4
+     nodes over 64 interop validators (minimal, altair from genesis; a
+     slasher on each node's observers, sync-committee duties, per-node WAL
+     stores in a datadir, 2% seeded gossip loss; each duty phase's gossip
+     verified in batches), the bls, epoch and slasher backends on the card,
+     run until every node finalizes at >= 2: one node killed at the 9th WAL
+     frame barrier after slot 10 (``resilience.inject`` ``mode=kill``) and
+     restarted from disk two slots later (its recovery report at its
+     pre-crash head with fork-choice nodes, back at the network's head);
+     then an attestation carrying another's signature and a block signed by
+     the wrong key, refused by every other node; no slashing anywhere; no
+     fault domain moved; ms per slot, verify calls and launches per slot
+     per node, one slot under the profiler, peak bytes. (b) 16 light-client
+     sessions from ``testing.fabricate_lc_sessions`` on the network's
+     harness through the LC engine on the card: all True, a tampered one
+     False, as the host loop (native) and the oracle judge them. (c) one
+     main-path batch (``batches[1]``) with the Karabina switch off and on
+     (``bls.set_backend(..., karabina=)``): equal verdicts, the poisoned
+     batch False under both, the canonical |x| powers and final
+     exponentiations of its Miller product equal; each arm's |x| power,
+     final exponentiation and batch timed; KARABINA_SQR bit-exact against
+     its plain version at rows 1. Every shape the phase launched is then
+     held exact, and its new kernel rows timed.
+Phases 8-10, 12-16 and 17-22 each set the counts to 0 before and read them after,
 as phase 5 does, and hold any shape they launched that phase 4 did not see
 (phase 14's column and batch shapes, phase 15's and phase 16's must all be
 among the shapes checked before them: phase 3's warm-up runs one column
@@ -269,6 +292,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -289,7 +313,7 @@ STATE_EPOCH = 101  # bench.py's epoch: no eth1, sync-committee or history bounda
 ATT_SLOTS = 8  # attestations in the state-transition block (one per slot, all committees)
 KZG_COLUMN_REPS = 5  # timed column verifies (phase 14)
 KZG_BATCH_REPS = 3  # timed batches of every required cell (phase 14)
-NET_BLOCKS = 2  # blocks node A builds for node B's range sync, after phase 14's blob block (phase 15)
+NET_BLOCKS = 1  # blocks node A builds for node B's range sync, after phase 14's blob block (phase 15; cut from 2 to keep phase 22 inside the time limit)
 NET_CODEC_REPS = 5  # timed encodes and decodes of a block and a column (phase 15)
 LC_SESSIONS = 16  # the mass-service batch (bench.py:2162 _inner_light_clients; phase 16)
 LC_REPS = 5  # timed batches of it
@@ -308,18 +332,25 @@ def log(*a):
 # --------------------------------------------------------------------------------------
 
 
-def _registry(n: int, sk0: int):
-    """Affine pubkeys of secret keys sk0 .. sk0+n-1 as raw [n, 96] bytes."""
+REGISTRY_CHUNKS = 8  # independent walks of the registry, one per fixture worker
+
+
+def _fixture_map(pool, fn, jobs: list) -> list:
+    return pool.map(fn, jobs) if pool is not None else [fn(j) for j in jobs]
+
+
+def _registry_walk(job):
+    """Affine pubkeys of secret keys sk .. sk+m-1 as raw [m, 96] bytes: one
+    mixed Jacobian + affine G addition per key, then one batched
+    normalisation (Montgomery's trick)."""
     import numpy as np
 
     from lighthouse_tpu_torch.oracle import curves as oc
     from lighthouse_tpu_torch.oracle.fields import P
 
-    path = os.path.join(FIXTURE_DIR, f"registry_{n}_{sk0:x}.npz")
-    if os.path.exists(path):
-        return np.load(path)["raw"]
+    sk, n = job
     gx, gy = oc.g1_generator()
-    x1, y1 = oc.g1_mul((gx, gy), sk0)
+    x1, y1 = oc.g1_mul((gx, gy), sk)
     X, Y, Z = [x1], [y1], [1]
     for _ in range(n - 1):
         # mixed Jacobian + affine G addition (add-2007-bl madd, a = 0)
@@ -341,7 +372,6 @@ def _registry(n: int, sk0: int):
         X.append(x3)
         Y.append(y3)
         Z.append(z3)
-    # one batched normalisation (Montgomery's trick)
     pref = [0] * n
     acc = 1
     for i in range(n):
@@ -361,32 +391,55 @@ def _registry(n: int, sk0: int):
     for i in range(n):
         xs += out_x[i].to_bytes(48, "big")
         ys += out_y[i].to_bytes(48, "big")
-    raw = np.concatenate(
+    return np.concatenate(
         [np.frombuffer(bytes(xs), np.uint8).reshape(n, 48),
          np.frombuffer(bytes(ys), np.uint8).reshape(n, 48)],
         axis=1,
     )
+
+
+def _registry(n: int, sk0: int, pool=None):
+    """Affine pubkeys of secret keys sk0 .. sk0+n-1 as raw [n, 96] bytes,
+    walked in REGISTRY_CHUNKS consecutive ranges (over ``pool``'s workers
+    when given)."""
+    import numpy as np
+
+    path = os.path.join(FIXTURE_DIR, f"registry_{n}_{sk0:x}.npz")
+    if os.path.exists(path):
+        return np.load(path)["raw"]
+    step = -(-n // REGISTRY_CHUNKS)
+    jobs = [(sk0 + i, min(step, n - i)) for i in range(0, n, step)]
+    raw = np.concatenate(_fixture_map(pool, _registry_walk, jobs), axis=0)
     os.makedirs(FIXTURE_DIR, exist_ok=True)
     np.savez(path, raw=raw)
     return raw
 
 
-def _batch(rng, n_val: int, sk0: int, n_sets: int, k: int, poison: bool = False):
-    """n_sets (indices, message, signature bytes) triples signed by the oracle
-    with each set's aggregate secret key; ``poison`` swaps in a signature of
-    another message for set 0."""
+def _sign_compressed(job) -> bytes:
+    """The oracle's compressed signature of ``msg`` under secret key ``sk``."""
     from lighthouse_tpu_torch.oracle import ciphersuite as cs
     from lighthouse_tpu_torch.oracle import curves as oc
+
+    sk, msg = job
+    return oc.g2_compress(cs.sign(sk, msg))
+
+
+def _batch(rng, n_val: int, sk0: int, n_sets: int, k: int, poison: bool = False, pool=None):
+    """n_sets (indices, message, signature bytes) triples signed by the oracle
+    with each set's aggregate secret key (over ``pool``'s workers when
+    given); ``poison`` swaps in a signature of another message for set 0."""
     from lighthouse_tpu_torch.oracle.fields import R
 
-    items = []
+    drawn, jobs = [], []
     for s in range(n_sets):
         idx = rng.choice(n_val, size=k, replace=False)
         msg = rng.bytes(32)
         agg_sk = (k * sk0 + int(idx.sum())) % R
         msg_signed = rng.bytes(32) if (poison and s == 0) else msg
-        items.append(([int(i) for i in idx], msg, oc.g2_compress(cs.sign(agg_sk, msg_signed))))
-    return items
+        drawn.append(([int(i) for i in idx], msg))
+        jobs.append((agg_sk, msg_signed))
+    sigs = _fixture_map(pool, _sign_compressed, jobs)
+    return [(idx, msg, sig) for (idx, msg), sig in zip(drawn, sigs)]
 
 
 def _pubkeys(raw, idx):
@@ -402,31 +455,41 @@ def _pubkeys(raw, idx):
     ]
 
 
-def _block(rng, raw, sk0: int, n_att: int, k: int):
+def _sign_point(job):
+    """The oracle's signature of ``msg`` under secret key ``sk`` (a G2 point)."""
+    from lighthouse_tpu_torch.oracle import ciphersuite as cs
+
+    sk, msg = job
+    return cs.sign(sk, msg)
+
+
+def _block(rng, raw, sk0: int, n_att: int, k: int, pool=None):
     """One block's signature sets over ``bls`` objects: the proposer and
     randao sets (one key each, through ``PublicKey.from_bytes``), ``n_att``
     attestation aggregates and one sync aggregate of ``k`` keys each, all
-    signed by the oracle. Returns (sets, the secret key of each set)."""
+    signed by the oracle (over ``pool``'s workers when given). Returns
+    (sets, the secret key of each set)."""
     from lighthouse_tpu_torch import bls
-    from lighthouse_tpu_torch.oracle import ciphersuite as cs
     from lighthouse_tpu_torch.oracle import curves as oc
     from lighthouse_tpu_torch.oracle.fields import R
 
     n_val = raw.shape[0]
-    sets, sks = [], []
+    singles, multis, sks, msgs = [], [], [], []
     for _ in range(2):
         v = int(rng.integers(n_val))
-        pk = bls.PublicKey.from_bytes(oc.g1_compress(_pubkeys(raw, [v])[0].point))
-        msg = rng.bytes(32)
-        sets.append(bls.SignatureSet.single_pubkey(bls.Signature(cs.sign(sk0 + v, msg)), pk, msg))
+        singles.append(bls.PublicKey.from_bytes(oc.g1_compress(_pubkeys(raw, [v])[0].point)))
+        msgs.append(rng.bytes(32))
         sks.append(sk0 + v)
     for _ in range(n_att + 1):
         idx = rng.choice(n_val, size=k, replace=False)
-        msg = rng.bytes(32)
-        agg_sk = (k * sk0 + int(idx.sum())) % R
-        sets.append(bls.SignatureSet.multiple_pubkeys(
-            bls.AggregateSignature(cs.sign(agg_sk, msg)), _pubkeys(raw, idx), msg))
-        sks.append(agg_sk)
+        msgs.append(rng.bytes(32))
+        sks.append((k * sk0 + int(idx.sum())) % R)
+        multis.append(_pubkeys(raw, idx))
+    sigs = _fixture_map(pool, _sign_point, list(zip(sks, msgs)))
+    sets = [bls.SignatureSet.single_pubkey(bls.Signature(sig), pk, msg)
+            for pk, sig, msg in zip(singles, sigs, msgs)]
+    sets += [bls.SignatureSet.multiple_pubkeys(bls.AggregateSignature(sig), pks, msg)
+             for pks, sig, msg in zip(multis, sigs[2:], msgs[2:])]
     return sets, sks
 
 
@@ -2558,8 +2621,9 @@ def network_phase(spec, chain, kz, raw, sk0: int, dev, rng, seed: int, lc_a: lis
     gossip = {}
     try:
         # attestations and aggregates batch in the processor (held, then
-        # drained as a worker would); sync-committee messages are not
-        # batchable there, so each runs as it arrives
+        # drained as a worker would); sync-committee messages run as each
+        # arrives, as the reference's processor runs them: a batch holding
+        # the poisoned one falls back to one call a message anyway
         for name, publish, items in (("attestations", a.publish_attestation, atts),
                                      ("aggregates", a.publish_aggregate, aggs),
                                      ("sync_messages", a.publish_sync_message, msgs)):
@@ -4891,6 +4955,333 @@ def stop_process(proc) -> None:
 
 
 # --------------------------------------------------------------------------------------
+# The local network, the session fabricator and Karabina squaring (phase 22)
+# --------------------------------------------------------------------------------------
+
+LN_NODES = 4
+LN_VALIDATORS = CLI_VALIDATORS  # phase 19 (b)'s interop cut: the oracle derives every key
+LN_LOSS = 0.02  # seeded gossip loss (the reference's chaos scenario)
+LN_MAX_SLOTS = 64  # 8 minimal epochs: finality at >= 2 comes by slot ~33
+LN_KILL_SLOT = 10  # the kill plan goes in before this slot
+LN_KILL_AT = 9  # the WAL frame barrier (store.commit) it kills at
+LN_RESTART_AFTER = 2  # slots the killed node stays down
+LN_PROFILED_SLOT = 24  # the slot run under the profiler
+LN_SESSIONS = 16  # phase 22 (b): fabricated light-client sessions
+KAR_REPS = 5  # phase 22 (c): timed repeats (after a warm-up) of each arm's |x| power and final exponentiation
+DOMAINS = ("bls", "epoch", "slasher", "lc")
+
+
+def _domain_snapshots() -> dict:
+    from lighthouse_tpu_torch import resilience
+
+    sups = {"bls": resilience.bls_supervisor, "epoch": resilience.epoch_supervisor,
+            "slasher": resilience.slasher_supervisor, "lc": resilience.lc_supervisor}
+    return {k: sups[k]().snapshot() for k in DOMAINS}
+
+
+def _domains_clean(before: dict, what: str) -> dict:
+    """No fault domain faulted, fell back, was demoted or quarantined since
+    ``before``; returns the snapshots."""
+    after = _domain_snapshots()
+    for k in DOMAINS:
+        moved = {c: after[k][c] - before[k][c]
+                 for c in ("faults", "demotions", "fallback_calls", "exhausted")
+                 if after[k][c] != before[k][c]}
+        if moved or after[k]["state"] != "HEALTHY" or after[k]["hard_quarantined"]:
+            raise RuntimeError(f"{what}: the {k} fault domain moved: {moved}, {after[k]}")
+    return after
+
+
+def _tampered_attestation(net):
+    """An attestation of node 0's head carrying another attester's
+    signature (the reference chaos scenario's adversarial item)."""
+    node = net.nodes[0]
+    slot = int(node.chain.head.slot)
+    atts = net.harness.unaggregated_attestations_for_slot(node.chain.head.state, slot,
+                                                          node.chain.head.root)
+    if len(atts) < 2:
+        raise RuntimeError(f"local network: {len(atts)} attesters at slot {slot}")
+    bad = atts[0]
+    bad.signature = atts[1].signature
+    return bad
+
+
+def _tampered_block(net, slot: int):
+    """Node 0's proposal for ``slot`` on its head, with its randao reveal
+    right and its block signature made by the next validator's key."""
+    from lighthouse_tpu_torch.ssz import uint64
+    from lighthouse_tpu_torch.state_transition import (
+        get_beacon_proposer_index, get_current_epoch, process_slots,
+    )
+    from lighthouse_tpu_torch.types.containers import SigningData
+    from lighthouse_tpu_torch.types.helpers import compute_signing_root, get_domain
+
+    spec, chain = net.spec, net.nodes[0].chain
+    net.clock.set_slot(slot)
+    state = chain.head.state.copy()
+    process_slots(spec, state, slot)
+    proposer = get_beacon_proposer_index(spec, state)
+    epoch = get_current_epoch(spec, state)
+    domain_r = get_domain(spec, state, spec.DOMAIN_RANDAO, epoch=epoch)
+    reveal = net.harness._sign(proposer, SigningData(
+        object_root=uint64.hash_tree_root(epoch), domain=domain_r).tree_root())
+    block, _ = chain.produce_block_on_state(chain.head.state, slot, reveal)
+    domain_b = get_domain(spec, state, spec.DOMAIN_BEACON_PROPOSER, epoch=epoch)
+    wrong = (proposer + 1) % len(state.validators)
+    sig = net.harness._sign(wrong, compute_signing_root(block, domain_b))
+    return chain.ns.block_types[spec.fork_name_at_epoch(epoch)](message=block, signature=sig)
+
+
+def local_network_phase(dev, root: str, seed: int) -> dict:
+    """Phase 22 (a): LN_NODES nodes of the port's ``LocalNetwork`` on the
+    card until every node finalizes at >= 2, one node killed at a WAL
+    barrier and restarted from disk; then a tampered attestation and a
+    tampered block offered to every node."""
+    import torch
+
+    from lighthouse_tpu_torch import bls, epoch_engine, slasher
+    from lighthouse_tpu_torch.ops.bls import fused_mul as fm
+    from lighthouse_tpu_torch.resilience.inject import injector
+    from lighthouse_tpu_torch.slasher import SlasherConfig
+    from lighthouse_tpu_torch.testing import LocalNetwork
+    from lighthouse_tpu_torch.types.spec import minimal_spec
+
+    bls.set_backend("device", device=dev)
+    epoch_engine.set_backend("device", device=dev)
+    slasher.set_backend("device", device=dev)
+    before = _domain_snapshots()
+    spec = minimal_spec(altair_fork_epoch=0)
+    t = time.time()
+    net = LocalNetwork(spec, LN_NODES, LN_VALIDATORS, slasher=True, sync_committee=True,
+                       datadir=root, device=dev, batch_gossip=True,
+                       slasher_config=SlasherConfig(validator_chunk_size=16, history_length=64))
+    net.transport.set_gossip_loss(LN_LOSS, seed=seed)
+    build_s = time.time() - t
+    torch.cuda.reset_peak_memory_stats()
+    fm.reset_counts()
+    slot_ms, crash, report, prof = [], None, None, None
+    slot = 0
+    try:
+        while slot < LN_MAX_SLOTS:
+            slot += 1
+            if slot == LN_KILL_SLOT:
+                injector.install(f"stage=store.commit;mode=kill;at={LN_KILL_AT}")
+            t = time.time()
+            if slot == LN_PROFILED_SLOT:
+                _, wall_ms, dev_us, host_ops = _profiled(lambda: net.run_slot(slot))
+                busy = sum(dev_us.values()) / 1e3
+                prof = {"slot": slot, "wall_ms": wall_ms, "busy_ms": busy, "aten_ops": host_ops,
+                        "idle_share": 1 - busy / wall_ms if busy else None}
+            else:
+                net.run_slot(slot)
+                torch.cuda.synchronize()
+                slot_ms.append((time.time() - t) * 1e3)
+            if net.dead and crash is None:
+                injector.clear()
+                i = next(iter(net.dead))
+                crash = {"node": i, "slot": slot, "head_slot": int(net.nodes[i].chain.head.slot),
+                         "head_root": bytes(net.nodes[i].chain.head.root).hex()}
+            if crash is not None and report is None and slot == crash["slot"] + LN_RESTART_AFTER:
+                net.restart_node(crash["node"], from_disk=True)
+                report = dict(net.recovery_reports[-1])
+            if (report is not None and slot > crash["slot"] + LN_RESTART_AFTER + 1
+                    and slot > LN_PROFILED_SLOT and min(net.finalized_epochs()) >= 2
+                    and net.heads_agree()):
+                break
+    finally:
+        injector.clear()
+    torch.cuda.synchronize()
+    runs = {"local_net": _read_counts("local network")}
+    peak = torch.cuda.max_memory_allocated()
+    if crash is None or report is None:
+        raise RuntimeError(f"local network: the kill at barrier {LN_KILL_AT} never fired")
+    fins = net.finalized_epochs()
+    if not net.heads_agree() or min(fins) < 2:
+        raise RuntimeError(f"local network: heads {net.head_slots()} finalized {fins} after "
+                           f"{slot} slots")
+    if not (report["fc_nodes"] > 0 and crash["head_slot"] - 1 <= report["head_slot"]
+            <= crash["head_slot"]):
+        raise RuntimeError(f"local network: recovery report {report} against the pre-crash "
+                           f"head {crash}")
+    back = net.nodes[crash["node"]].chain.head
+    if bytes(back.root) != bytes(net.nodes[0].chain.head.root):
+        raise RuntimeError("local network: the restarted node is not at the network's head")
+    for i, n in enumerate(net.nodes):
+        slashed = [v for v, val in enumerate(n.chain.head.state.validators) if val.slashed]
+        pooled = len(n.op_pool._attester_slashings) + len(n.op_pool._proposer_slashings)
+        if slashed or pooled:
+            raise RuntimeError(f"local network: node {i}'s slasher convicted an honest "
+                               f"validator: slashed {slashed}, {pooled} pooled")
+    # the tampered objects, offered to every node but the one that makes them
+    fm.reset_counts()
+    bad_att = _tampered_attestation(net)
+    bad_block = _tampered_block(net, slot + 1)
+    verdicts = []
+    for i, n in enumerate(net.nodes[1:], start=1):
+        res = n.chain.verify_unaggregated_attestations([bad_att])
+        head = bytes(n.chain.head.root)
+        try:
+            n.chain.process_block(bad_block)
+            block_refused, why = False, None
+        except Exception as e:  # noqa: BLE001 — any refusal; the head must stay put too
+            block_refused, why = bytes(n.chain.head.root) == head, f"{type(e).__name__}: {e}"[:120]
+        verdicts.append({"node": i, "attestation_refused": isinstance(res[0][1], Exception),
+                         "attestation_why": str(res[0][1])[:120],
+                         "block_refused": block_refused, "block_why": why})
+    torch.cuda.synchronize()
+    runs["local_net_tampered"] = _read_counts("local network tampered objects")
+    if not all(v["attestation_refused"] and v["block_refused"] for v in verdicts):
+        raise RuntimeError(f"local network: a tampered object was accepted: {verdicts}")
+    domains = _domains_clean(before, "local network")
+    n_slots = len(slot_ms) + 1
+    by = runs["local_net"]["by"]
+    calls = runs["local_net"]["by_name"].get(("CHAIN", "cyc_exp_abs_x"), 0) / 5
+    out = {
+        "nodes": LN_NODES, "validators": LN_VALIDATORS, "slots": n_slots, "build_s": build_s,
+        "slot_ms": _spread(slot_ms), "finalized": fins, "head_slot": int(net.nodes[0].chain.head.slot),
+        "missed_proposals": net.missed_proposals, "crash": crash,
+        "recovery": {k: (v.hex() if isinstance(v, bytes) else v) for k, v in report.items()},
+        "gossip_delivered": net.transport.gossip_delivered,
+        "gossip_dropped": net.transport.gossip_dropped,
+        "verify_calls_per_slot_per_node": calls / n_slots / LN_NODES,
+        "launches_per_slot_per_node": {k: v / n_slots / LN_NODES for k, v in by.items()},
+        "profiled": prof, "peak_bytes": peak, "tampered": verdicts, "domains": domains,
+        "runs": runs, "net": net,
+    }
+    log(f"local network: {LN_NODES} nodes x {LN_VALIDATORS} validators (minimal, altair from "
+        f"genesis, slasher and sync committees, gossip loss {LN_LOSS}) built in {build_s:.1f} s; "
+        f"{n_slots} slots to finalized {fins}, heads agree; ms per slot "
+        f"{json.dumps(out['slot_ms'])}; {out['verify_calls_per_slot_per_node']:.2f} verify "
+        f"calls and launches {json.dumps({k: round(v, 1) for k, v in out['launches_per_slot_per_node'].items()})} "
+        f"per slot per node; node {crash['node']} killed at barrier {LN_KILL_AT} in slot "
+        f"{crash['slot']} (head slot {crash['head_slot']}), recovered from disk in "
+        f"{report['recovery_s']:.3f} s to head slot {report['head_slot']} with "
+        f"{report['fc_nodes']} fork-choice nodes, back at the head; tampered attestation and "
+        f"block refused by nodes 1-{LN_NODES - 1}; no slashing; {net.missed_proposals} missed "
+        f"proposals; gossip {out['gossip_delivered']} delivered, {out['gossip_dropped']} "
+        f"dropped; profiled slot {json.dumps(prof)}; peak {peak} bytes")
+    return out
+
+
+def lc_fabricated_phase(net, dev, seed: int) -> dict:
+    """Phase 22 (b): LN_SESSIONS sessions from ``fabricate_lc_sessions`` on
+    the network's altair harness, through the port's LC engine on the card,
+    beside the host loop (native backend; two sessions on the oracle too)."""
+    import torch
+
+    from lighthouse_tpu_torch import bls
+    from lighthouse_tpu_torch.light_client import engine
+    from lighthouse_tpu_torch.ops.bls import fused_mul as fm
+    from lighthouse_tpu_torch.testing import fabricate_lc_sessions, tamper_session
+
+    t = time.time()
+    sessions, gvr = fabricate_lc_sessions(net.harness, LN_SESSIONS, seed)
+    bad = [tamper_session(sessions[3], "signature")]
+    fixture_s = time.time() - t
+    before = _domain_snapshots()
+    bls.set_backend("device", device=dev)
+    engine.set_lc_backend("device", device=dev)
+    engine.verify_update_batch(net.spec, sessions, gvr)  # warm-up: the committee rows
+    torch.cuda.synchronize()
+    fm.reset_counts()
+    t = time.time()
+    got = engine.verify_update_batch(net.spec, sessions, gvr)
+    torch.cuda.synchronize()
+    batch_ms = (time.time() - t) * 1e3
+    got_bad = engine.verify_update_batch(net.spec, bad, gvr)
+    torch.cuda.synchronize()
+    runs = {"lc_fabricated": _read_counts("fabricated sessions")}
+    engine.set_lc_backend("host")
+    bls.set_backend("native")
+    t = time.time()
+    host = engine.verify_update_batch(net.spec, sessions + bad, gvr)
+    host_ms = (time.time() - t) * 1e3
+    bls.set_backend("oracle")
+    oracle = engine.verify_update_batch(net.spec, [sessions[0]] + bad, gvr)
+    bls.set_backend("device", device=dev)
+    engine.set_lc_backend("device", device=dev)
+    if got + got_bad != host or host != [True] * LN_SESSIONS + [False]:
+        raise RuntimeError(f"fabricated sessions: card {got + got_bad} != host loop {host}")
+    if oracle != [True, False]:
+        raise RuntimeError(f"fabricated sessions: oracle {oracle}")
+    _domains_clean(before, "fabricated sessions")
+    log(f"fabricated sessions: {LN_SESSIONS} over the network's genesis sync committee "
+        f"({net.spec.preset.SYNC_COMMITTEE_SIZE} keys) built in {fixture_s:.2f} s; the batch on "
+        f"the card {batch_ms:.2f} ms, all True, a tampered signature False; the host loop "
+        f"(native) {host_ms:.1f} ms, equal; the oracle equal on two; launches "
+        f"{json.dumps(runs['lc_fabricated']['by'])}")
+    return {"sessions": LN_SESSIONS, "fixture_s": fixture_s, "batch_ms": batch_ms,
+            "host_ms": host_ms, "runs": runs}
+
+
+def karabina_phase(cache, batch, poisoned, dev, gen) -> dict:
+    """Phase 22 (c): one main-path batch verified with the Karabina switch
+    off and on; each arm's |x| power, final exponentiation and batch timed;
+    KARABINA_SQR held bit-exact against its plain version."""
+    import torch
+
+    from lighthouse_tpu_torch import bls
+    from lighthouse_tpu_torch.bls import backend
+    from lighthouse_tpu_torch.ops.bls import fused_mul as fm, pairing, tower
+
+    bls.set_backend("device", device=dev)
+    b = backend.prepare_batch(batch, device=dev)
+    mxa, mya = backend.h2c_stage(b["u0"], b["u1"])
+    pre = backend.prep_stage(cache, b["idx"], b["mask"], b["sxc0"], b["sxc1"], b["s_flag"],
+                             b["sig_wf"], b["scalars"], b["valid"])
+    f = pairing.miller_loop_product(*backend.pair_inputs(*pre[:4], mxa, mya, b["valid"]))
+    g = tower.fq12_mul(tower.fq12_conj(f), tower.fq12_inv(f))
+    g = tower.fq12_mul(tower.fq12_frobenius(g, 2), g)  # cyclotomic: the |x| powers' domain
+    arms, canon = {}, {}
+    for arm in (False, True):
+        name = "karabina" if arm else "direct"
+        cyc_ms = _time(lambda: tower.fq12_cyclotomic_exp_abs_x(g, compressed=arm), KAR_REPS)
+        fe_ms = _time(lambda: pairing.final_exponentiation(f, compressed=arm), KAR_REPS)
+        canon[name] = (tower.t_canon(tower.fq12_cyclotomic_exp_abs_x(g, compressed=arm)),
+                       tower.t_canon(pairing.final_exponentiation(f, compressed=arm)))
+        bls.set_backend("device", device=dev, karabina=arm)
+        backend.verify_indexed_sets_device(cache, batch, device=dev)  # warm-up
+        torch.cuda.synchronize()
+        fm.reset_counts()
+        t = time.time()
+        ok = backend.verify_indexed_sets_device(cache, batch, device=dev)
+        torch.cuda.synchronize()
+        batch_ms = (time.time() - t) * 1e3
+        bad = backend.verify_indexed_sets_device(cache, poisoned, device=dev)
+        torch.cuda.synchronize()
+        counts = _read_counts(f"karabina arm {name}")
+        if ok is not True or bad is not False:
+            raise RuntimeError(f"karabina arm {name}: valid {ok}, poisoned {bad}")
+        arms[name] = {"cyc_exp_abs_x_ms": cyc_ms, "final_exp_ms": fe_ms,
+                      "batch_ms": batch_ms, "launches": counts["by"], "log": counts["log"],
+                      "by_name": counts["by_name"]}
+    bls.set_backend("device", device=dev, karabina=False)
+    for k, (a, c) in enumerate(zip(canon["direct"], canon["karabina"])):
+        if not torch.equal(a, c):
+            raise RuntimeError(f"karabina: the arms' {('|x| powers', 'final exponentiations')[k]} "
+                               f"differ")
+    sched = fm.SCHEDULES["kar_sqr_c"]
+    a = _operand(1, sched.n_a, sched.in_bounds[0], gen, dev)
+    got = fm.cuda_fused(sched, a, a)
+    torch.cuda.synchronize()
+    if not torch.equal(got, fm.plain_plan(sched, a, a)):
+        raise RuntimeError("KARABINA_SQR: plan kernel != plain")
+    step = plan_timing("kar_sqr_c", 1, dev, gen)
+    log("karabina: " + "; ".join(
+        f"{k}: |x| power {v['cyc_exp_abs_x_ms']:.4f} ms, final exponentiation "
+        f"{v['final_exp_ms']:.3f} ms, batch {v['batch_ms']:.2f} ms, launches "
+        f"{json.dumps(v['launches'])}" for k, v in arms.items())
+        + f"; verdicts equal (valid True, poisoned False), the canonical |x| powers and final "
+        f"exponentiations equal; KARABINA_SQR (14 lanes, 8 rows) bit-exact at rows 1, "
+        f"{step['ms']:.5f} ms a step")
+    runs = {"karabina": {"by": arms["karabina"]["launches"], "log": arms["karabina"].pop("log"),
+                         "by_name": arms["karabina"].pop("by_name")},
+            "karabina_direct": {"by": arms["direct"]["launches"], "log": arms["direct"].pop("log"),
+                                "by_name": arms["direct"].pop("by_name")}}
+    return {"arms": arms, "kar_sqr_step": step, "runs": runs}
+
+
+# --------------------------------------------------------------------------------------
 # Kernel checks
 # --------------------------------------------------------------------------------------
 
@@ -4910,7 +5301,7 @@ REPLACES = {
     "K3": "lighthouse_tpu/ops/bls/pallas_kernels.py:620 (execute_plan -> _build_call:497)",
     "CHAIN": "lighthouse_tpu/ops/bls/pallas_kernels.py:587/:620 (one _build_call:497 launch per "
              "step of fq.py:887 pow_fixed_scan, tower.py:282 _sqrt_chain, "
-             "tower.py:588 fq12_cyclotomic_exp_abs_x)",
+             "tower.py:588 fq12_cyclotomic_exp_abs_x, tower.py:634 _cyc_exp_abs_x_compressed)",
 }
 
 
@@ -4950,10 +5341,11 @@ def _bound(n_ops: int, n_bytes: int):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def _time(fn, reps: int) -> float:
+def _time(fn, reps: int, warm: bool = True) -> float:
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
@@ -5131,7 +5523,8 @@ def chain_timing(name: str, rows: int, dev, gen) -> dict:
     host_ms = _time(lambda: fm.cuda_chain(prog, base), 5)
     step_ms = _time_graph(lambda: fm.replay_chain(prog, base, fm.cuda_fused), 1)
     step_host_ms = _time(lambda: fm.replay_chain(prog, base, fm.cuda_fused), 1)
-    plain_ms = _time(lambda: fm.plain_chain(prog, base), 1)
+    # the exact checks ran the plain version at this shape: one timed call, no warm-up
+    plain_ms = _time(lambda: fm.plain_chain(prog, base), 1, warm=False)
     n_ops = rows * sum(_step_ops(prog.scheds[d]) for d, *_ in prog.steps if d != fm.COPY)
     n_bytes = rows * prog.n_el * 200 * 2 + prog.prog.nbytes
     bound_ms, bound_by = _bound(n_ops, n_bytes)
@@ -5320,20 +5713,27 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     sk0 = int(rng.integers(1 << 62)) | 1
     t = time.time()
-    raw = _registry(args.validators, sk0)
-    log(f"fixture registry: {args.validators} keys in {time.time() - t:.2f} s")
-    t = time.time()
-    n_b = args.batches + 2  # warm-up, timed, poisoned
-    batches = [_batch(rng, args.validators, sk0, args.sets, args.keys) for _ in range(n_b - 1)]
-    poisoned = _batch(rng, args.validators, sk0, args.sets, args.keys, poison=True)
-    log(f"fixture signatures: {n_b * args.sets} sets in {time.time() - t:.2f} s")
-    t = time.time()
-    block, block_sks = _block(rng, raw, sk0, BLOCK_ATTESTATIONS, args.keys)
-    block_bad = _poison(block, block_sks, len(block) // 2)
-    small, small_sks = _block(rng, raw, sk0, 1, 8)
-    small_bad = _poison(small, small_sks, 3)
-    n_block_keys = sum(len(s.signing_keys) for s in block)
-    log(f"fixture block: {len(block)} sets, {n_block_keys} keys, in {time.time() - t:.2f} s")
+    # the fixtures' oracle arithmetic is pure Python: one spawned worker per
+    # host core (no child inherits the parent's threads), terminated on exit
+    n_workers = max(1, min(len(os.sched_getaffinity(0)), REGISTRY_CHUNKS))
+    with multiprocessing.get_context("spawn").Pool(n_workers) as fixture_pool:
+        raw = _registry(args.validators, sk0, fixture_pool)
+        log(f"fixture registry: {args.validators} keys in {time.time() - t:.2f} s "
+            f"({n_workers} worker processes)")
+        t = time.time()
+        n_b = args.batches + 2  # warm-up, timed, poisoned
+        batches = [_batch(rng, args.validators, sk0, args.sets, args.keys, pool=fixture_pool)
+                   for _ in range(n_b - 1)]
+        poisoned = _batch(rng, args.validators, sk0, args.sets, args.keys, poison=True,
+                          pool=fixture_pool)
+        log(f"fixture signatures: {n_b * args.sets} sets in {time.time() - t:.2f} s")
+        t = time.time()
+        block, block_sks = _block(rng, raw, sk0, BLOCK_ATTESTATIONS, args.keys, pool=fixture_pool)
+        block_bad = _poison(block, block_sks, len(block) // 2)
+        small, small_sks = _block(rng, raw, sk0, 1, 8, pool=fixture_pool)
+        small_bad = _poison(small, small_sks, 3)
+        n_block_keys = sum(len(s.signing_keys) for s in block)
+        log(f"fixture block: {len(block)} sets, {n_block_keys} keys, in {time.time() - t:.2f} s")
     t = time.time()
     pool = _gossip_pool(rng, args.validators, sk0, COMMITTEES, 32)
     bad_pos = (17, 42)
@@ -5880,6 +6280,36 @@ def main() -> int:
         f"new shapes (the vectors' and the discovery nodes') checked exact; phase "
         f"{vm['phase_s']:.1f} s")
 
+    # 22. the local network, the session fabricator and Karabina squaring
+    t = time.time()
+    part_s = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_local_net_") as ln_dir:
+        ln = local_network_phase(dev, ln_dir, args.seed)
+        part_s["a"] = time.time() - t
+        net22 = ln.pop("net")
+        runs.update(ln.pop("runs"))
+        fb = lc_fabricated_phase(net22, dev, args.seed)
+        runs.update(fb.pop("runs"))
+        del net22
+    part_s["b"] = time.time() - t - part_s["a"]
+    ka = karabina_phase(cache, batches[1], poisoned, dev, gen)
+    runs.update(ka.pop("runs"))
+    part_s["c"] = time.time() - t - part_s["a"] - part_s["b"]
+    ln_runs = ("local_net", "local_net_tampered", "lc_fabricated", "karabina", "karabina_direct")
+    n_new = sum(exact_checks(runs[k]["log"], dev, gen, done) for k in ln_runs)
+    known = {(r["kind"], r["name"], r["rows"]): r for r in krows}
+    ln_rows = timed_rows({k: runs[k]["log"] for k in ("local_net", "lc_fabricated", "karabina")},
+                         dev, gen, known=known)
+    krows += ln_rows
+    ln["phase_s"] = time.time() - t
+    part_s["checks"] = ln["phase_s"] - part_s["a"] - part_s["b"] - part_s["c"]
+    ln["part_s"] = part_s
+    log(f"local network, fabricator, karabina: launches "
+        f"{json.dumps({k: runs[k]['by'] for k in ln_runs})}; {n_new} new shapes checked exact "
+        f"after the phase; {sum(1 for r in ln_rows if not r.get('reused'))} of {len(ln_rows)} "
+        f"kernel rows timed anew; phase {ln['phase_s']:.1f} s "
+        f"({', '.join(f'{k} {v:.1f} s' for k, v in part_s.items())})")
+
     log(f"elapsed: {time.time() - t_start:.1f} s")
     table = []
     for r in krows:
@@ -5932,6 +6362,8 @@ def main() -> int:
                                      "launches": {k: runs[k]["by"] for k in vc_runs}},
                 "vectors": {**vm, "discovery": dm,
                             "launches": {k: runs[k]["by"] for k in vector_runs}},
+                "local_network": {**ln, "fabricated": fb, "karabina": ka,
+                                  "launches": {k: runs[k]["by"] for k in ln_runs}},
             }, f, indent=1)
     print(card, flush=True)
     print(json.dumps({"kernels": table}), flush=True)

@@ -60,8 +60,12 @@ _LIFO = {
 }
 
 # batchable work: (batch cap mirrors max_gossip_attestation_batch_size = 64,
-# lib.rs:219-231; configurable upward for the device backend)
-_BATCHABLE = {WorkType.GossipAttestation, WorkType.GossipAggregate}
+# lib.rs:219-231; configurable upward for the device backend). Sync-committee
+# messages batch too, unlike the reference's: a device verify call costs the
+# same ~1,000 kernel launches for one set as for 64, and
+# ``verify_sync_committee_messages`` judges a batch message by message
+_BATCHABLE = {WorkType.GossipAttestation, WorkType.GossipAggregate,
+              WorkType.GossipSyncSignature}
 
 
 @dataclass

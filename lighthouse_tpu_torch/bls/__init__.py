@@ -43,23 +43,29 @@ SECRET_KEY_BYTES_LEN = 32
 
 INFINITY_PUBLIC_KEY = b"\xc0" + b"\x00" * 47
 INFINITY_SIGNATURE = b"\xc0" + b"\x00" * 95
-# decompressed, subgroup-checked pubkeys kept by their bytes: an oracle parse
-# is a square root and a subgroup check in Python, and block processing
-# re-reads the same sync committee every block
+# decompressed, subgroup-checked pubkeys (and decompressed signatures) kept by
+# their bytes: an oracle parse is a square root (and a subgroup check) in
+# Python, and block processing re-reads the same sync committee every block
 PUBKEY_PARSE_CACHE = 8192
 
 _BACKEND = "device"
 _DEVICE = None  # None: CUDA (device.resolve_device)
+_KARABINA = False
 
 
-def set_backend(name: str, *, device=None) -> None:
+def set_backend(name: str, *, device=None, karabina: bool | None = None) -> None:
     """Select the backend; ``device`` is where ``"device"`` runs when a call
-    names none (the counterpart of the reference's JAX default device)."""
-    global _BACKEND, _DEVICE
+    names none (the counterpart of the reference's JAX default device);
+    ``karabina`` puts the device backend's final exponentiations on
+    Karabina squaring (the reference's LIGHTHOUSE_PAIRING_KARABINA=1, off
+    until a call turns it on, as there); None keeps the switch as it is."""
+    global _BACKEND, _DEVICE, _KARABINA
     if name not in ("device", "oracle", "native"):
         raise ValueError(f"unknown bls backend {name!r}")
     _BACKEND = name
     _DEVICE = device
+    if karabina is not None:
+        _KARABINA = bool(karabina)
 
 
 def get_backend() -> str:
@@ -68,6 +74,10 @@ def get_backend() -> str:
 
 def get_device():
     return _DEVICE
+
+
+def get_karabina() -> bool:
+    return _KARABINA
 
 
 def _native():
@@ -112,6 +122,14 @@ def _parse_pubkey(data: bytes) -> PublicKey:
     return PublicKey(pt)
 
 
+@functools.lru_cache(maxsize=PUBKEY_PARSE_CACHE)
+def g2_point(data: bytes):
+    """``oracle.curves.g2_decompress`` kept by its bytes (a ValueError is
+    raised and not kept): every node of a process, its pools and its
+    verifies parse the same gossip signature."""
+    return _oc.g2_decompress(data)
+
+
 @dataclass(frozen=True)
 class Signature:
     """G2 signature. Parsed lazily-strict: bytes must decode to an on-curve
@@ -125,10 +143,9 @@ class Signature:
         if len(data) != SIGNATURE_BYTES_LEN:
             raise BlsError(f"invalid signature length {len(data)}")
         try:
-            pt = _oc.g2_decompress(data)
+            return cls(g2_point(bytes(data)))
         except ValueError as e:
             raise BlsError(str(e)) from None
-        return cls(pt)
 
     def serialize(self) -> bytes:
         return _oc.g2_compress(self.point)

@@ -90,16 +90,25 @@ def prep_stage(cache, idx, mask, sxc0, sxc1, s_flag, sig_wf, scalars, valid):
     return pkx, pky, sax, say, set_ok
 
 
-def pair_stage(pkx, pky, sax, say, mxa, mya, set_ok, valid):
-    """Stage 3: one shared Miller product + ONE final exponentiation."""
-    mg1x = fq.dconst(_MG1_X, pkx)
-    mg1y = fq.dconst(_MG1_Y, pkx)
-    px = torch.cat([pkx[:, 0, :], mg1x[None]], dim=0)
-    py = torch.cat([pky[:, 0, :], mg1y[None]], dim=0)
+def pair_inputs(pkx, pky, sax, say, mxa, mya, valid):
+    """The Miller product's pairs: each set's (key, message) and (-G1, the
+    signature sum); returns (px, py, qx, qy, pair_valid)."""
+    px = torch.cat([pkx[:, 0, :], fq.dconst(_MG1_X, pkx)[None]], dim=0)
+    py = torch.cat([pky[:, 0, :], fq.dconst(_MG1_Y, pkx)[None]], dim=0)
     qx = torch.cat([mxa, sax[None]], dim=0)
     qy = torch.cat([mya, say[None]], dim=0)
     pair_valid = torch.cat([valid, torch.ones(1, dtype=torch.bool, device=valid.device)])
-    ok = pairing.multi_pairing_is_one(px, py, qx, qy, pair_valid)
+    return px, py, qx, qy, pair_valid
+
+
+def pair_stage(pkx, pky, sax, say, mxa, mya, set_ok, valid):
+    """Stage 3: one shared Miller product + ONE final exponentiation, its
+    |x| powers on Karabina squaring when ``bls.set_backend`` turned it on."""
+    from .. import bls
+
+    ok = pairing.multi_pairing_is_one(
+        *pair_inputs(pkx, pky, sax, say, mxa, mya, valid), compressed=bls.get_karabina()
+    )
     return ok & torch.all(set_ok) & torch.any(valid)
 
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import bls
 from ..oracle import curves as oc
 
 
@@ -30,7 +31,7 @@ class NaiveAggregationPool:
         data = attestation.data
         root = type(data).hash_tree_root(data)
         bits = np.asarray(attestation.aggregation_bits, dtype=bool)
-        sig = oc.g2_decompress(bytes(attestation.signature))
+        sig = bls.g2_point(bytes(attestation.signature))
         entry = self._maps.get(root)
         if entry is None:
             self._maps[root] = (data, bits.copy(), sig)

@@ -15,6 +15,7 @@ import threading
 
 import numpy as np
 
+from .. import bls
 from ..oracle import curves as oc
 from ..state_transition.beacon_state_util import (
     get_attesting_indices, get_beacon_committee, get_current_epoch,
@@ -52,7 +53,7 @@ class OperationPool:
         data = attestation.data
         root = type(data).hash_tree_root(data)
         bits = np.asarray(attestation.aggregation_bits, dtype=bool)
-        sig = oc.g2_decompress(bytes(attestation.signature))
+        sig = bls.g2_point(bytes(attestation.signature))
         entry = self._attestations.get(root)
         if entry is None:
             self._attestations[root] = (data, [(bits, sig)])

@@ -15,6 +15,7 @@ import threading
 
 import numpy as np
 
+from .. import bls
 from ..oracle import curves as oc
 
 INFINITY_SIG = b"\xc0" + b"\x00" * 95
@@ -37,7 +38,7 @@ class SyncContributionPool:
         bits = np.zeros(self.size, dtype=bool)
         for pos in positions:
             bits[int(pos)] = True
-        point = oc.g2_decompress(bytes(signature))
+        point = bls.g2_point(bytes(signature))
         acc = point
         for _ in range(len(positions) - 1):
             acc = oc.g2_add(acc, point)
@@ -55,7 +56,7 @@ class SyncContributionPool:
             int(contribution.slot),
             bytes(contribution.beacon_block_root),
             bits,
-            oc.g2_decompress(bytes(contribution.signature)),
+            bls.g2_point(bytes(contribution.signature)),
         )
 
     def _merge(self, slot: int, root: bytes, bits, sig_point) -> None:

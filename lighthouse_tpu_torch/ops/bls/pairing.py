@@ -307,29 +307,34 @@ def miller_loop_product(px, py, qx, qy, valid=None):
     return _conj_norm(f)
 
 
-def final_exponentiation(f):
+def final_exponentiation(f, *, compressed: bool = False):
     """f^((p^6-1)(p^2+1)) then the hard part via the x-addition chain
-    (3 lambda = (x-1)^2 (x+p) (x^2 + p^2 - 1) + 3)."""
+    (3 lambda = (x-1)^2 (x+p) (x^2 + p^2 - 1) + 3). ``compressed`` routes
+    the five |x| powers through Karabina squaring
+    (``tower.fq12_cyclotomic_exp_abs_x``)."""
     f = tower.fq12_mul(tower.fq12_conj(f), tower.fq12_inv(f))
     f = tower.fq12_mul(tower.fq12_frobenius(f, 2), f)
 
+    def exp_abs_x(g):
+        return tower.fq12_cyclotomic_exp_abs_x(g, compressed=compressed)
+
     def exp_x_minus_1(g):
-        gx = tower.fq12_cyclotomic_exp_abs_x(g)
-        return tower.fq12_conj(tower.fq12_mul(gx, g))
+        return tower.fq12_conj(tower.fq12_mul(exp_abs_x(g), g))
 
     m1 = exp_x_minus_1(f)
     m2 = exp_x_minus_1(m1)
-    m2x = tower.fq12_conj(tower.fq12_cyclotomic_exp_abs_x(m2))
+    m2x = tower.fq12_conj(exp_abs_x(m2))
     m3 = tower.fq12_mul(m2x, tower.fq12_frobenius(m2, 1))
-    m3x = tower.fq12_conj(tower.fq12_cyclotomic_exp_abs_x(m3))
-    m3x2 = tower.fq12_conj(tower.fq12_cyclotomic_exp_abs_x(m3x))
+    m3x = tower.fq12_conj(exp_abs_x(m3))
+    m3x2 = tower.fq12_conj(exp_abs_x(m3x))
     m4 = tower.fq12_mul(m3x2, tower.fq12_mul(tower.fq12_frobenius(m3, 2), tower.fq12_conj(m3)))
     f3 = tower.fq12_mul(tower.fq12_mul(f, f), f)
     return tower.fq12_mul(m4, f3)
 
 
-def multi_pairing_is_one(px, py, qx, qy, valid=None):
+def multi_pairing_is_one(px, py, qx, qy, valid=None, *, compressed: bool = False):
     """prod_i e(P_i, Q_i) == 1 with ONE final exponentiation; ``valid``
-    masks entries (a masked entry contributes one)."""
+    masks entries (a masked entry contributes one); ``compressed`` as in
+    ``final_exponentiation``."""
     f = miller_loop_product(px, py, qx, qy, valid)
-    return tower.fq12_is_one(final_exponentiation(f))
+    return tower.fq12_is_one(final_exponentiation(f, compressed=compressed))

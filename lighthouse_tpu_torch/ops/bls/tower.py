@@ -1,7 +1,7 @@
 """Fq2 / Fq6 / Fq12 tower arithmetic on int64 limb tensors (plan-compiled).
 
-Port of ``lighthouse_tpu/ops/bls/tower.py`` (Karabina compressed squaring is
-left out: it is opt-in and off by default in the reference). Flat layout:
+Port of ``lighthouse_tpu/ops/bls/tower.py``, Karabina compressed squaring
+included (an argument, off by default as in the reference). Flat layout:
 fq2 = [..., 2, 25], fq6 = [..., 6, 25], fq12 = [..., 12, 25] at the public
 bound (plans.PUB_BOUND), reduced mod p only at comparisons. Every multiply
 runs as one plan execution — one launch of the plan kernel — except inside
@@ -435,13 +435,161 @@ def _cyc_exp_program():
     return fused_mul.ChainProgram("cyc_exp_abs_x", (cyc, mul), 1, 12, 2, BASE, ACC, steps)
 
 
-def fq12_cyclotomic_exp_abs_x(a):
-    """a^|x| (|x| = 0xd201000000010000): the |x| double-and-add schedule
-    unrolled on the host and run as ONE chain-kernel launch, lazy fq12
-    interiors, one public-bound walk at the end (the reference's default,
-    uncompressed arm)."""
+# --------------------------------------------------------------------------------------
+# Karabina compressed cyclotomic squaring
+# --------------------------------------------------------------------------------------
+#
+# In the Granger-Scott z-slot notation the cyclotomic square of the CYC_SQR
+# plan reads (with xi = u+1):
+#
+#   z2' = 6 xi z4 z5 + 2 z2        z3' = 3 (z4^2 + xi z5^2) - 2 z3
+#   z4' = 3 (z2^2 + xi z3^2) - 2 z4    z5' = 6 z2 z3 + 2 z5
+#
+# i.e. the (z2, z3, z4, z5) quadruple is closed under squaring: the Karabina
+# compression. A compressed element is [..., 8, 25] = [z2|z3|z4|z5];
+# compressed squaring is a 14-lane plan (4 sqr2 + 2 mul2) reducing 8 rows,
+# against CYC_SQR's 18 lanes / 12 rows. Decompression recovers
+#
+#   z1 = (xi z5^2 + 3 z4^2 - 2 z3) / (4 z2)            [z2 != 0]
+#   z1 = (2 z4 z5) / z3                                [z2 == 0]
+#   z0 = (2 z1^2 + z2 z5 - 3 z3 z4) xi + 1
+#
+# with ONE fq2 inversion (inv0 semantics make the z2 == z3 == 0 identity
+# fall out as z1 = 0, z0 = 1), batched over every collect point.
+#
+# Flat fq12 layout <-> z-slots (see CYC_SQR): coefficients
+# [z0(0:2) z4(2:4) z3(4:6) z2(6:8) z1(8:10) z5(10:12)].
+
+
+def fq12_compress(a):
+    """Cyclotomic fq12 [..., 12, 25] -> compressed [..., 8, 25] = [z2|z3|z4|z5]."""
+    return torch.cat([a[..., 6:8, :], a[..., 4:6, :], a[..., 2:4, :], a[..., 10:12, :]], dim=-2)
+
+
+def _build_karabina_sqr() -> plans.Plan:
+    """A copy of the reference's plan (tests pin the two equal)."""
+    from .plans import v2_add, v2_nr
+
+    p = plans.Plan(8, 8)
+    x = plans.vbasis(8)
+    z2, z3, z4, z5 = x[0:2], x[2:4], x[4:6], x[6:8]
+    iz2 = [p.inp(0), p.inp(1)]
+    iz3 = [p.inp(2), p.inp(3)]
+    iz4 = [p.inp(4), p.inp(5)]
+    iz5 = [p.inp(6), p.inp(7)]
+    s2, s3, s4, s5 = p.sqr2(z2), p.sqr2(z3), p.sqr2(z4), p.sqr2(z5)
+    m45 = p.mul2(z4, z5)
+    m23 = p.mul2(z2, z3)
+    t2 = v2_add(s2, v2_nr(s3))
+    t4 = v2_add(s4, v2_nr(s5))
+
+    def scale(v, k):
+        return [c.scale(k) for c in v]
+
+    z2n = v2_add(scale(v2_nr(m45), 6), scale(iz2, 2))
+    z3n = [a.scale(3) - b.scale(2) for a, b in zip(t4, iz3)]
+    z4n = [a.scale(3) - b.scale(2) for a, b in zip(t2, iz4)]
+    z5n = v2_add(scale(m23, 6), scale(iz5, 2))
+    p.out_rows = z2n + z3n + z4n + z5n
+    return p
+
+
+KARABINA_SQR = _build_karabina_sqr()
+
+
+def fq12_compressed_sqr(c, in_bound=PUB_BOUND):
+    """One Karabina squaring on a compressed element [..., 8, 25]."""
+    return plans.execute(KARABINA_SQR, c, c, in_bound, in_bound, "kar_sqr")
+
+
+def fq12_compressed_sqr_lazy(c, in_bound=None):
+    bd, ob = plans.f12_interior()
+    bd = in_bound or bd
+    return plans.execute(KARABINA_SQR, c, c, bd, bd, "kar_sqr_c", out_bound=ob)
+
+
+def fq12_decompress(c):
+    """Compressed [..., 8, 25] (public-bounded) -> full cyclotomic fq12.
+    Branchless over the z2 == 0 special case; ONE fq2 inversion over the
+    whole batch (one launch of the chain kernel's ``inv``)."""
+    z2, z3, z4, z5 = c[..., 0:2, :], c[..., 2:4, :], c[..., 4:6, :], c[..., 6:8, :]
+    s5, s4, m45, m35 = fq2_mul_many([(z5, z5), (z4, z4), (z4, z5), (z3, z4)])
+    z2_zero = t_is_zero(z2)
+    # numerator / denominator of z1 for both branches
+    num_a = plans.carry_norm(
+        t_sub(fq2_mul_by_nonresidue(s5) + s4 * 3, z3 * 2, PUB_BOUND.scaled(2))
+    )
+    num_b = plans.carry_norm(m45 * 2)
+    den_a = plans.carry_norm(z2 * 4)
+    num = t_select(z2_zero, num_b, num_a)
+    den = t_select(z2_zero, z3, den_a)
+    z1 = fq2_mul(num, fq2_inv(den))
+    s1, m25 = fq2_mul_many([(z1, z1), (z2, z5)])
+    z0 = plans.carry_norm(
+        fq2_mul_by_nonresidue(
+            plans.carry_norm(t_sub(s1 * 2 + m25, m35 * 3, PUB_BOUND.scaled(3)))
+        )
+        + one_like(2, z1)
+    )
+    return torch.cat([z0, z4, z3, z2, z1, z5], dim=-2)
+
+
+_ABS_X_BITS = tuple(
+    i for i in range(64) if ((-_of.BLS_X) >> i) & 1
+)  # (16, 48, 57, 60, 62, 63)
+
+
+@functools.lru_cache(maxsize=None)
+def _karabina_run_program(run: int):
+    """``run`` compressed squarings at the fq12 interior bound as one
+    chain-kernel program (slot 0 the base, slot 1 the accumulator): the
+    run from one set bit of |x| to the next."""
     from . import fused_mul
 
+    bd, ob = plans.f12_interior()
+    kar = fused_mul.prepare_plan(KARABINA_SQR, 8, bd, bd, "kar_sqr_c", ob).sched
+    BASE, ACC = 0, 1
+    steps = [(0, ACC, BASE, (BASE,))] + [(0, ACC, ACC, (ACC,))] * (run - 1)
+    return fused_mul.ChainProgram(f"kar_sqr_x{run}", (kar,), 1, 8, 2, BASE, ACC, steps)
+
+
+def _cyc_exp_abs_x_compressed(a):
+    """a^|x| via compressed squarings: a^|x| = prod_e a^(2^e) over the set
+    bits e of |x|. The 63 squarings run as six chain-kernel launches, one
+    per run between set bits (the kernel returns only its accumulator, so
+    each collect point ends a launch); the six points are decompressed as
+    one batch and combined by a halving product tree, as the reference's
+    scan does."""
+    from . import fused_mul
+
+    c = fq12_compress(a)
+    points, prev = [], 0
+    for e in _ABS_X_BITS:
+        c = fused_mul.run_chain(_karabina_run_program(e - prev), c[None])[0]
+        points.append(c)
+        prev = e
+    fs = fq12_decompress(plans.carry_norm(torch.stack(points, dim=0)))  # [6, ..., 12, 25]
+    n = fs.shape[0]
+    while n > 1:
+        if n % 2:
+            fs = torch.cat([fs, one_like(12, fs[:1])], dim=0)
+            n += 1
+        fs = fq12_mul(fs[: n // 2], fs[n // 2 :])
+        n //= 2
+    return fs[0]
+
+
+def fq12_cyclotomic_exp_abs_x(a, compressed: bool = False):
+    """a^|x| (|x| = 0xd201000000010000). ``compressed=False`` (the
+    reference's default arm): the |x| double-and-add schedule unrolled on
+    the host and run as ONE chain-kernel launch, lazy fq12 interiors, one
+    public-bound walk at the end. ``compressed=True``: the Karabina arm
+    (``_cyc_exp_abs_x_compressed``). The caller chooses; no environment
+    variable is read."""
+    from . import fused_mul
+
+    if compressed:
+        return _cyc_exp_abs_x_compressed(a)
     return plans.carry_norm(fused_mul.run_chain(_cyc_exp_program(), a[None])[0])
 
 

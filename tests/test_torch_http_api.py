@@ -290,7 +290,12 @@ def test_ssz_block_publish_moves_both_heads_and_fires_the_head_event(pair):
         with urllib.request.urlopen(pair.ps.url + "/eth/v1/events?topics=head", timeout=30) as r:
             ready.set()
             for line in r:
-                events.append(line.decode().strip())
+                text = line.decode().strip()
+                # SSE comments (the server's ": keepalive" after a second
+                # without an event) and blank separators carry no event
+                if not text or text.startswith(":"):
+                    continue
+                events.append(text)
                 if line.startswith(b"data:"):
                     return
 

@@ -279,14 +279,15 @@ def test_port_imports_neither_jax_nor_reference(registry, batch):
     fork revert, both persistence modules, the client, the CLI and its parser,
     the Beacon API server and client, the metrics server, eth1, the
     execution layer's HTTP stack, the native backend, discovery, the test
-    harness, the conformance runner, the database tools, keys, the validator
+    harness (the local network and the session fabricator too), the
+    conformance runner, the database tools, keys, the validator
     client, the validator manager and watch included), verifies on the CPU (and through the native backend, its ENR verified),
     runs one numpy epoch boundary, serves a status from a node on the chain
     (its light-client server cache in place), sweeps the slasher's span
     store on the CPU, round-trips a fork-choice snapshot, loads the port's
     own trusted setup, derives a key, records a proposal in a slashing
-    database, parses a ``vc``, opens a watch database, and has loaded no jax
-    and nothing of lighthouse_tpu."""
+    database, parses a ``vc``, opens a watch database, builds the Karabina
+    plan, and has loaded no jax and nothing of lighthouse_tpu."""
     raw, _, _ = registry
     ix, msg, sb = batch[1]
     code = f"""
@@ -317,6 +318,7 @@ import lighthouse_tpu_torch.execution_layer.mock, lighthouse_tpu_torch.execution
 import lighthouse_tpu_torch.beacon_chain.validator_monitor, lighthouse_tpu_torch.utils.system_health
 import lighthouse_tpu_torch.native, lighthouse_tpu_torch.network.discovery
 import lighthouse_tpu_torch.testing, lighthouse_tpu_torch.conformance
+import lighthouse_tpu_torch.testing.local_network, lighthouse_tpu_torch.testing.lc_workload
 import lighthouse_tpu_torch.conformance.generate, lighthouse_tpu_torch.tools.db
 import lighthouse_tpu_torch.keys, lighthouse_tpu_torch.validator_client, lighthouse_tpu_torch.watch
 import lighthouse_tpu_torch.validator_client.runner, lighthouse_tpu_torch.tools.vm
@@ -372,6 +374,8 @@ ok = ok and sdb.check_and_insert_block_proposal(bytes(48), 1, bytes(32)) == "val
 vc_args = lighthouse_tpu_torch.cli.build_parser().parse_args(["vc", "--interop-validators", "2"])
 ok = ok and vc_args.interop_validators == 2 and not hasattr(vc_args, "device")
 ok = ok and lighthouse_tpu_torch.watch.WatchDB().slot_bounds() is None
+from lighthouse_tpu_torch.ops.bls import tower
+ok = ok and len(tower.KARABINA_SQR.a_rows) == 14 and tower._ABS_X_BITS[-1] == 63
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "lighthouse_tpu" or m.startswith("lighthouse_tpu.")]
 print(ok, bad)
