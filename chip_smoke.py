@@ -45,7 +45,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      those False, as many verify calls as the reference's bisection makes;
  11. epoch boundaries on the device: an electra mainnet-preset state over
      the whole registry (bench.py's _build_epoch_state shape, the
-     registry's pubkeys) through one warm-up, 3 timed and one profiled
+     registry's pubkeys) through one warm-up, EPOCH_TIMED timed and one profiled
      boundary, each through ``process_slots`` with the epoch backend
      "device": every one handled by the device engine, a clean
      ``epoch_device`` supervisor; at 2^18 validators one device boundary
@@ -256,7 +256,34 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      final exponentiation and batch timed; KARABINA_SQR bit-exact against
      its plain version at rows 1. Every shape the phase launched is then
      held exact, and its new kernel rows timed.
-Phases 8-10, 12-16 and 17-22 each set the counts to 0 before and read them after,
+ 23. the serving mesh on the card: MESH_SHARDS = 4 logical shards on the
+     one card (``[cuda:0] * 4``; the machine has one card, so no cross-card
+     copy is measured), each part run where its fixture lives. (a) after
+     phase 10: phase 5's batches through ``bls.sharded.
+     verify_indexed_sets_sharded`` (the poisoned batch False as the
+     warm-up, 3 timed True) and ``verify_staged_pershard`` (a valid batch
+     all True, its dispatch profiled, the device alone; the poisoned set
+     rotated into shard 2: exactly shard 2 False), the bls API's mesh arm
+     (2 shards) on phase 8's small sets as the oracle judges them; (b) the
+     firehose with a ``MeshVerifier`` planner at phase 9's rate for 1 s
+     (intake 32) with phase 10's two poisoned items leading: every
+     verdict as the oracle's; then ``mesh.shard1`` injected twice:
+     ``bls_shard1`` quarantined, the ticks served by the mesh of 2 with the
+     poisoned group False, then back on all 4 after probation; (c) after
+     phase 13: the chain's planner with the mesh on (no oracle rung on a
+     card) and its batch route, valid and poisoned gossip as with the mesh
+     off; (d) is not run: the light-client and KZG engines keep one check a
+     batch (their split would run every shard on the same device); (e) in
+     phase 11: the 2^18 parity boundary over 4 row blocks, its tree root
+     equal to the unsharded device boundary's (every field, by their
+     roots); after phase 17: the 2^20 x 64 slasher cell's traffic on 4
+     validator row blocks, per-pair outputs and the device planes equal to
+     the unsharded store's, 4/4 surrounds and doubles, no false positive;
+     (f) after phase 22: every
+     shape the mesh ran held exact and its new rows timed. Its seconds are
+     paid for by the timed repeats cut in earlier phases (REPEAT_CUTS); the
+     run prints both.
+Phases 8-10, 12-16 and 17-23 each set the counts to 0 before and read them after,
 as phase 5 does, and hold any shape they launched that phase 4 did not see
 (phase 14's column and batch shapes, phase 15's and phase 16's must all be
 among the shapes checked before them: phase 3's warm-up runs one column
@@ -306,17 +333,20 @@ STREAM_S = 3.0  # firehose stream length (bench.py's BENCH_FIREHOSE_SECONDS defa
 FIREHOSE_RATE = 50_000.0  # att/s offered (BASELINE config #5)
 COMMITTEES = 64  # gossip pool: one slot's committees, 32 attesters each
 BLOCK_ATTESTATIONS = 128  # attestation aggregates in the block (BASELINE config #3)
-BLOCK_REPS = 5  # timed repeats of each half of the block verify
-EPOCH_TIMED = 3  # timed epoch boundaries, between one warm-up and one profiled
+BLOCK_REPS = 2  # timed repeats of each half of the block verify (5 until phase 23)
+EPOCH_TIMED = 1  # timed epoch boundaries, between one warm-up and one profiled (3 until phase 23)
 PARITY_VALIDATORS = 1 << 18  # the largest registry bench.py holds against its numpy twin
 STATE_EPOCH = 101  # bench.py's epoch: no eth1, sync-committee or history boundary follows soon
 ATT_SLOTS = 8  # attestations in the state-transition block (one per slot, all committees)
-KZG_COLUMN_REPS = 5  # timed column verifies (phase 14)
-KZG_BATCH_REPS = 3  # timed batches of every required cell (phase 14)
+KZG_COLUMN_REPS = 2  # timed column verifies (phase 14; 5 until phase 23)
+KZG_BATCH_REPS = 1  # timed batches of every required cell (phase 14; 3 until phase 23)
 NET_BLOCKS = 1  # blocks node A builds for node B's range sync, after phase 14's blob block (phase 15; cut from 2 to keep phase 22 inside the time limit)
-NET_CODEC_REPS = 5  # timed encodes and decodes of a block and a column (phase 15)
+NET_CODEC_REPS = 2  # timed encodes and decodes of a block and a column (phase 15; 5 until phase 23)
 LC_SESSIONS = 16  # the mass-service batch (bench.py:2162 _inner_light_clients; phase 16)
-LC_REPS = 5  # timed batches of it
+LC_REPS = 2  # timed batches of it (5 until phase 23)
+FIREHOSE_ALONE = 1  # standalone gossip batches timed beside the firehose (phase 9; 8 until phase 23)
+PLAIN_REPS = 1  # timed calls, after a warm-up, of a plan schedule's plain version (phase 4 rows; 10 until phase 23)
+TIMING_REPS = 20  # launches of a plan row timed in a CUDA graph, and from Python (100 until phase 23)
 LC_MIXED = 4  # sessions of the mixed batch held against the host loop (its time bounds it)
 # int32 multiply-add rate outside the tensor cores: an H100 SM has half as
 # many INT32 lanes as FP32 lanes, so half the 67 TFLOP/s fp32 peak
@@ -601,30 +631,34 @@ def _spread(ms: list) -> dict:
     return {"median": ms[len(ms) // 2], "min": ms[0], "max": ms[-1]}
 
 
-def _profiled(fn):
+def _profiled(fn, host_ops: bool = True):
     """One call of ``fn`` under torch.profiler: (its result, wall ms, device
-    microseconds by kernel name, aten ops dispatched)."""
+    microseconds by kernel name, aten ops dispatched). ``host_ops=False``
+    traces the device alone (aten ops None): the host trace of a call of
+    ~100k ops costs tens of seconds to aggregate."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_ops else [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         t = time.time()
         out = fn()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t) * 1e3
+    # summed over the trace's raw events: key_averages first builds a Python
+    # event tree, seconds for a call of ten thousand launches
     dev_us: dict = {}
-    host_ops = 0
-    for e in prof.key_averages():
-        if "cuda" not in str(getattr(e, "device_type", "")).lower():
-            if e.key.startswith("aten::"):
-                host_ops += e.count
+    n_ops = 0 if host_ops else None
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if "cuda" not in str(e.device_type()).lower():
+            if host_ops and name.startswith("aten::"):
+                n_ops += 1
             continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
+        us = e.duration_ns() / 1e3
         if us:
-            dev_us[e.key] = dev_us.get(e.key, 0.0) + us
-    return out, wall_ms, dev_us, host_ops
+            dev_us[name] = dev_us.get(name, 0.0) + us
+    return out, wall_ms, dev_us, n_ops
 
 
 def _bisect_calls(order: list, bad: set) -> int:
@@ -866,7 +900,9 @@ def epoch_phase(spec, raw, comp, dev, rng, profile: bool = True) -> tuple:
             bounds.append({"epoch_ms": seam_calls[i][1] * 1e3, "slots_ms": slots_s * 1e3,
                            "h2d_bytes": stats["last_host_to_device_bytes"]})
             if i < n_bound - 1:
+                t0 = time.perf_counter()
                 _next_epoch(spec, state, rng)
+                bounds[-1]["next_ms"] = (time.perf_counter() - t0) * 1e3
     finally:
         epoch_engine.maybe_process_epoch_on_device = real
     snap = sup.snapshot()
@@ -913,6 +949,9 @@ def epoch_parity_phase(spec, raw, comp, dev, rng) -> dict:
     state.tree_root()  # the copy below carries the per-validator root memos
     root_s = time.time() - t
     twin = state.copy()
+    t = time.time()
+    mesh_twin = state.copy()  # phase 23 (e): the same boundary over row blocks
+    mesh_copy_s = time.time() - t
     epoch_engine.set_backend("device", device=dev)
     t = time.time()
     if not epoch_engine.maybe_process_epoch_on_device(spec, state):
@@ -925,7 +964,11 @@ def epoch_parity_phase(spec, raw, comp, dev, rng) -> dict:
     numpy_s = time.time() - t
     epoch_engine.set_backend("device", device=dev)
     _epoch_parity(state, twin)
-    return {"validators": n, "device_s": dev_s, "numpy_s": numpy_s, "first_root_s": root_s}
+    t = time.time()
+    mesh = mesh_epoch_check(spec, mesh_twin, state, dev)
+    mesh["phase_s"] = time.time() - t + mesh_copy_s
+    return {"validators": n, "device_s": dev_s, "numpy_s": numpy_s, "first_root_s": root_s,
+            "mesh": mesh}
 
 
 def _state_block(spec, state, sk0: int, sync_idx, rng):
@@ -1700,6 +1743,7 @@ def chain_phase(spec, anchor, raw, sk0: int, sync_idx, block, bad, dev_cache, de
     out["firehose"] = {"verified": fst.verified, "wall_s": fh_s,
                        "verified_att_per_s": fst.verified / fh_s, "batches": fst.batches_formed}
     out["gossip_atts"] = valid  # node C's pool in phase 18
+    out["gossip_bad"] = atts[bad_pos]  # phase 23 (c)
     rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
     out["peak_rss_bytes"] = rss
     log(f"chain firehose: {fst.verified} of {len(valid)} verified, 0 dropped, in {fh_s * 1e3:.2f} ms "
@@ -4967,7 +5011,7 @@ LN_KILL_AT = 9  # the WAL frame barrier (store.commit) it kills at
 LN_RESTART_AFTER = 2  # slots the killed node stays down
 LN_PROFILED_SLOT = 24  # the slot run under the profiler
 LN_SESSIONS = 16  # phase 22 (b): fabricated light-client sessions
-KAR_REPS = 5  # phase 22 (c): timed repeats (after a warm-up) of each arm's |x| power and final exponentiation
+KAR_REPS = 2  # phase 22 (c): timed repeats (after a warm-up) of each arm's |x| power and final exponentiation (5 until phase 23)
 DOMAINS = ("bls", "epoch", "slasher", "lc")
 
 
@@ -5282,6 +5326,404 @@ def karabina_phase(cache, batch, poisoned, dev, gen) -> dict:
 
 
 # --------------------------------------------------------------------------------------
+# The serving mesh (phase 23)
+# --------------------------------------------------------------------------------------
+
+MESH_SHARDS = 4  # logical shards of the mesh on the one card: [cuda:0] * 4
+MESH_TIMED = 3  # (a): timed combined batches
+MESH_STREAM_S = 1.0  # (b): the stream through the MeshVerifier
+MESH_INTAKE = 32  # (b): its intake (phase 9's holds 1024: a shorter drain)
+MESH_API = 2  # (a): the bls API's mesh on phase 8's small sets
+
+
+# the timed repeats cut to pay for phase 23: name -> (count before, count now)
+REPEAT_CUTS = {"BLOCK_REPS": (5, BLOCK_REPS), "EPOCH_TIMED": (3, EPOCH_TIMED),
+               "KZG_COLUMN_REPS": (5, KZG_COLUMN_REPS), "KZG_BATCH_REPS": (3, KZG_BATCH_REPS),
+               "NET_CODEC_REPS": (5, NET_CODEC_REPS), "LC_REPS": (5, LC_REPS),
+               "KAR_REPS": (5, KAR_REPS), "FIREHOSE_ALONE": (8, FIREHOSE_ALONE),
+               "PLAIN_REPS": (10, PLAIN_REPS), "TIMING_REPS": (100, TIMING_REPS)}
+
+
+def _repeat_cuts(block_t, epoch_m, km, nm, lm, ka, fh, krows) -> dict:
+    """What the cut repeats would have cost in this run: each loop's
+    per-repeat time as this run printed it (its median; for PLAIN_REPS the
+    sum over the plan rows timed, one call each) times the repeats cut."""
+    codec = nm["sockets"]["codec"].values()
+    per = {
+        "BLOCK_REPS": block_t["host_ms"]["median"] + block_t["device_half_ms"]["median"],
+        "EPOCH_TIMED": _spread([b["slots_ms"] + b["next_ms"] for b in epoch_m["timed"]])["median"],
+        "KZG_COLUMN_REPS": km["column_ms"]["median"],
+        "KZG_BATCH_REPS": km["batch_ms"]["median"],
+        "NET_CODEC_REPS": sum(c["encode_ms"]["median"] + c["decode_ms"]["median"] for c in codec),
+        "LC_REPS": lm["batch"]["batch_ms"]["median"],
+        "KAR_REPS": sum(a["cyc_exp_abs_x_ms"] + a["final_exp_ms"] for a in ka["arms"].values()),
+        "FIREHOSE_ALONE": fh["standalone_ms_per_batch"],
+        "PLAIN_REPS": sum(r["plain_ms"] for r in krows if r["kind"] != "CHAIN" and not r.get("reused")),
+        "TIMING_REPS": sum(r["ms"] + r["launch_ms"] for r in krows
+                           if r["kind"] != "CHAIN" and not r.get("reused")),
+    }
+    return {k: {"before": b, "now": n, "per_repeat_ms": per[k], "saved_s": (b - n) * per[k] / 1e3}
+            for k, (b, n) in REPEAT_CUTS.items()}
+
+
+def _mesh(n: int, dev) -> list:
+    return [dev] * n
+
+
+def mesh_main_phase(cache, batches, poisoned, small, small_bad, small_oracle, main_ms,
+                    dev) -> dict:
+    """Phase 23 (a): phase 5's batches over the resident cache on a mesh of
+    MESH_SHARDS logical shards on the card. Combined (``sharded.
+    verify_indexed_sets_sharded``: per-shard partials, one final
+    exponentiation): the poisoned batch False (the warm-up), MESH_TIMED
+    timed valid batches True, as phase 5 judged them; per shard
+    (``verify_staged_pershard`` through the chain's ``MeshBackend``): a
+    valid batch all True, its dispatch the profiled call (the device traced
+    alone), and the poisoned batch rotated so its bad set sits in shard 2:
+    exactly shard 2 False; the bls API's mesh arm (a mesh of MESH_API) on
+    phase 8's small sets gives the oracle's verdicts. Counts set to 0 before
+    each run and read after."""
+    from lighthouse_tpu_torch import bls
+    from lighthouse_tpu_torch.bls import mesh, sharded
+    from lighthouse_tpu_torch.ops.bls import fused_mul as fm
+
+    devs = _mesh(MESH_SHARDS, dev)
+    runs = {}
+    fm.reset_counts()
+    t = time.time()  # the poisoned batch first: it is the warm-up too
+    if sharded.verify_indexed_sets_sharded(cache, poisoned, devs) is not False:
+        raise RuntimeError("mesh: the poisoned batch verified (combined)")
+    warm_s = time.time() - t
+    ms = []
+    for items in batches[1:1 + MESH_TIMED]:
+        t = time.perf_counter()
+        ok = sharded.verify_indexed_sets_sharded(cache, items, devs)
+        ms.append((time.perf_counter() - t) * 1e3)
+        if ok is not True:
+            raise RuntimeError("mesh: a valid batch did not verify (combined)")
+    runs["mesh_combined"] = _read_counts("mesh: combined verdicts")
+    mb = mesh.make_mesh_backend(lambda: cache, devs)
+    cap = len(batches[1]) // MESH_SHARDS
+    ids = tuple(range(MESH_SHARDS))
+    rotated = poisoned[2 * cap:] + poisoned[:2 * cap]  # poisoned set 0 -> row 2 * cap
+    fm.reset_counts()
+    t = time.perf_counter()
+    staged = mb.stage([batches[1][s * cap:(s + 1) * cap] for s in ids], ids, cap)
+    stage_ms = (time.perf_counter() - t) * 1e3
+    t_prof = time.time()
+    good, pershard_ms, dev_us, ops = _profiled(lambda: mb.dispatch(None, ids, staged=staged),
+                                               host_ops=False)
+    profile_s = time.time() - t_prof
+    bad = mb.dispatch([rotated[s * cap:(s + 1) * cap] for s in ids], ids, shard_cap=cap)
+    runs["mesh_pershard"] = _read_counts("mesh: per-shard verdicts")
+    want_bad = [s != 2 for s in ids]
+    if good != [True] * MESH_SHARDS or bad != want_bad:
+        raise RuntimeError(f"mesh: per-shard verdicts {good}, poisoned {bad} (want {want_bad})")
+    t_api = time.time()
+    try:
+        bls.set_backend("device", device=dev, mesh_devices=_mesh(MESH_API, dev))
+        fm.reset_counts()
+        api = [bls.verify_signature_sets(x, device=dev) for x in (small, small_bad)]
+        runs["mesh_api"] = _read_counts("mesh: the bls API's mesh arm")
+    finally:
+        bls.set_backend("device", device=dev, mesh_devices=[])
+    if api != small_oracle:
+        raise RuntimeError(f"mesh: the bls API's mesh arm {api} != the oracle's {small_oracle}")
+    api_s = time.time() - t_api
+    busy = sum(dev_us.values()) / 1e3
+    spread = _spread(ms)
+    out = {
+        "shards": MESH_SHARDS, "devices": [str(d) for d in devs], "rows_per_shard": cap,
+        "api_s": api_s, "profile_s": profile_s,
+        "warmup_s": warm_s, "combined_ms": spread, "combined_all_ms": ms,
+        "phase5_ms_per_batch": main_ms, "sets_per_s": len(batches[1]) / (spread["median"] / 1e3),
+        "launches_per_batch": {k: v / (len(ms) + 1)
+                               for k, v in runs["mesh_combined"]["by"].items()},
+        "pershard_stage_ms": stage_ms, "pershard_profiled_ms": pershard_ms, "pershard": good,
+        "pershard_poisoned": bad, "api_small": api, "busy_ms": busy,
+        "aten_ops": ops, "idle_share": 1 - busy / pershard_ms if busy else None,
+        "device_ms_by_name": {k[:80]: v / 1e3 for k, v in sorted(dev_us.items(),
+                                                                  key=lambda kv: -kv[1])[:8]},
+    }
+    log(f"mesh (a): {len(batches[1])} sets x {len(batches[1][0][0])} keys on {MESH_SHARDS} "
+        f"logical shards of {cap} rows on {dev} (the poisoned batch, the warm-up, False in "
+        f"{warm_s:.2f} s): combined "
+        f"{json.dumps(spread)} ms a batch over {len(ms)} (phase 5: {main_ms:.2f} ms unsharded), "
+        f"valid True; per shard: staged in {stage_ms:.2f} ms, dispatched under the profiler "
+        f"(the device alone) in {pershard_ms:.2f} ms, busy {busy:.3f} ms, idle share "
+        f"{out['idle_share']}, valid {good}, poisoned set in shard 2 -> {bad}; the bls API's "
+        f"mesh arm ({MESH_API} shards) on the small sets {api} == oracle {small_oracle}; "
+        f"launches per combined batch {json.dumps(out['launches_per_batch'])}; the API check "
+        f"{api_s:.2f} s, the profiled dispatch {profile_s:.2f} s")
+    out["runs"] = runs
+    return out
+
+
+def mesh_firehose_phase(cache, pool, bis_items, bad_pos, sk0: int, dev, verify_gossip,
+                        alone_rate) -> dict:
+    """Phase 23 (b): the firehose with a ``MeshVerifier`` planner over
+    MESH_SHARDS logical shards (per-shard verdicts, prep-thread staging,
+    bisection only inside a failed shard), paced at phase 9's rate for
+    MESH_STREAM_S s with phase 10's two poisoned items in the stream: every
+    verdict as the oracle judges it (the fixture's construction, and the
+    oracle on one poisoned and one honest item). Then ``mesh.shard1``
+    injected twice: ``bls_shard1`` quarantined and out of the healthy set,
+    the next ticks served by the mesh of 2 with no false verify; after its
+    probation shard 1 back HEALTHY and the tick on all 4."""
+    from lighthouse_tpu_torch.bls import mesh
+    from lighthouse_tpu_torch.firehose import FirehoseConfig, FirehoseEngine, MeshVerifier
+    from lighthouse_tpu_torch.oracle import ciphersuite as cs, curves as oc
+    from lighthouse_tpu_torch.oracle.fields import R
+    from lighthouse_tpu_torch.ops.bls import fused_mul as fm
+    from lighthouse_tpu_torch.resilience.inject import injector
+
+    devs = _mesh(MESH_SHARDS, dev)
+    mb = mesh.make_mesh_backend(lambda: cache, devs)
+    dispatched = []
+
+    def dispatch(shard_items, device_ids, staged=None, shard_cap=None):
+        dispatched.append(tuple(device_ids))
+        return mb.dispatch(shard_items, device_ids, staged=staged, shard_cap=shard_cap)
+
+    mv = MeshVerifier(MESH_SHARDS, dispatch_fn=dispatch, stage_fn=mb.stage, probe_fn=mb.probe,
+                      single_fn=verify_gossip, oracle_fn=None)
+    for s in (mv.mesh_sup, *mv.shard_sups):
+        s.reset()
+    bad = {id(bis_items[j]) for j in bad_pos}
+    # the poisoned items lead the stream: the first MESH_INTAKE items are accepted
+    stream = [bis_items[j] for j in bad_pos] + [it for k, it in enumerate(pool) if k not in bad_pos]
+    verdicts = []
+    engine = FirehoseEngine(
+        prepare_fn=lambda ps: [([p], None) for p in ps], verify_items_fn=verify_gossip,
+        config=FirehoseConfig(max_batch=64, deadline_s=0.010, intake_capacity=MESH_INTAKE),
+        shard_planner=mv,
+    )
+    engine.default_callback = lambda p, ok, m: verdicts.append((id(p) in bad, ok))
+    fm.reset_counts()
+    n_stream, wall = _pace_stream(engine, stream, FIREHOSE_RATE, MESH_STREAM_S, 120.0)
+    st = engine.stats()
+    runs = {"mesh_firehose": _read_counts("mesh: the firehose")}
+    n_bad = sum(1 for b, _ in verdicts if b)
+    wrong = [(b, ok) for b, ok in verdicts if ok == b]
+    if wrong or n_bad < len(bad_pos) or st.errored or st.device_faults or not st.verified:
+        raise RuntimeError(f"mesh firehose: {len(wrong)} verdicts not the oracle's, {n_bad} "
+                           f"poisoned seen; {st.as_dict()}")
+    j_bad = bad_pos[0]
+    t = time.time()
+    oracle = [cs.verify(cs.sk_to_pk((sk0 + v) % R), msg, oc.g2_decompress(sig))
+              for (v,), msg, sig in (bis_items[j_bad], pool[j_bad])]
+    oracle_s = time.time() - t
+    if oracle != [False, True]:
+        raise RuntimeError(f"mesh firehose: the oracle judged the poisoned / honest item {oracle}")
+    slo = _slo_block(st, n_stream)
+
+    # the fault ladder: shard 1 faults twice, leaves the mesh, comes back
+    groups = [[it] for it in pool[:63]] + [[bis_items[j_bad]]]
+    fm.reset_counts()
+    injector.install("stage=mesh.shard1;mode=raise;kind=oom;every=1;times=2")
+    try:
+        faulted = [mv.verify_groups(groups)]
+        shrunk = dispatched[-1]  # the first faulted tick: the other half of the mesh
+        faulted.append(mv.verify_groups(groups))
+    finally:
+        injector.clear()
+    sup1 = mv.shard_sups[1]
+    state1, healthy = sup1.snapshot()["state"], mv.healthy_indices()
+    probation = [mv.mesh_sup.config.probation_s, sup1.config.probation_s]
+    mv.mesh_sup.config.probation_s = sup1.config.probation_s = 0.0
+    back = []
+    try:
+        for _ in range(12):
+            back.append(mv.verify_groups(groups))
+            if sup1.snapshot()["state"] == "HEALTHY" and dispatched[-1] == tuple(range(MESH_SHARDS)):
+                break
+    finally:
+        mv.mesh_sup.config.probation_s, sup1.config.probation_s = probation
+    runs["mesh_ladder"] = _read_counts("mesh: the fault ladder")
+    if any(v[-1] for v in faulted + back):
+        raise RuntimeError("mesh ladder: the poisoned group verified")
+    if state1 != "QUARANTINED" or 1 in healthy or shrunk != (2, 3):
+        raise RuntimeError(f"mesh ladder: shard 1 {state1}, healthy {healthy}, served by {shrunk}")
+    # group g sits in shard g % m (least-loaded, ties to the lowest shard); the
+    # poisoned group 63 condemns exactly its own shard's groups (the second
+    # faulted tick may fall to the single device, whose one verdict is False)
+    n_g = len(groups)
+    if faulted[0] != [g % 2 != (n_g - 1) % 2 for g in range(n_g)] or \
+            back[-1] != [g % MESH_SHARDS != (n_g - 1) % MESH_SHARDS for g in range(n_g)]:
+        raise RuntimeError(f"mesh ladder: per-group verdicts {faulted[0]} / {back[-1]}")
+    snap = mv.snapshot()
+    if sup1.snapshot()["state"] != "HEALTHY" or dispatched[-1] != tuple(range(MESH_SHARDS)):
+        raise RuntimeError(f"mesh ladder: shard 1 did not come back: {snap}")
+    out = {
+        "shards": MESH_SHARDS, "offered": n_stream, "offered_att_per_s": FIREHOSE_RATE,
+        "stream_s": MESH_STREAM_S, "intake": MESH_INTAKE, "accepted": st.submitted,
+        "verified": st.verified, "rejected": st.rejected, "dropped": st.dropped,
+        "drop_rate": st.dropped / n_stream, "wall_s": wall,
+        "verified_att_per_s": st.verified / wall, "p99_queue_ms": st.p99_latency_s * 1e3,
+        "slo": slo, "poisoned_verdicts": n_bad, "oracle": oracle, "oracle_s": oracle_s,
+        "phase9_standalone_att_per_s": alone_rate, "ladder": {
+            "quarantined": state1, "healthy_while_out": healthy, "served_by": list(shrunk),
+            "ticks_to_return": len(back), "snapshot": snap},
+    }
+    log(f"mesh (b): the firehose over a MeshVerifier of {MESH_SHARDS} shards: offered "
+        f"{FIREHOSE_RATE:.0f} att/s for {MESH_STREAM_S} s ({n_stream}), intake {MESH_INTAKE}: "
+        f"{st.submitted} accepted, {st.verified} verified, {st.rejected} rejected (the poisoned, "
+        f"{n_bad} seen: every verdict as the oracle's; oracle on one poisoned / one honest item "
+        f"{oracle} in {oracle_s:.2f} s), {st.dropped} dropped (rate {out['drop_rate']:.4f}), "
+        f"{out['verified_att_per_s']:.2f} att/s (phase 9 standalone {alone_rate:.2f}), p99 "
+        f"{out['p99_queue_ms']:.2f} ms; mesh.shard1 injected twice: bls_shard1 {state1}, "
+        f"healthy {healthy}, the first faulted tick served by {list(shrunk)}, the poisoned group "
+        f"False in every tick; back on all "
+        f"{MESH_SHARDS} after {len(back)} ticks")
+    out["runs"] = runs
+    return out
+
+
+def mesh_chain_phase(chain, atts, bad_att, dev) -> dict:
+    """Phase 23 (c): phase 13's chain with the mesh on. The bls backend
+    gets ``mesh_devices=[dev] * MESH_SHARDS``; the chain builds its planner
+    (a ``MeshVerifier``, no oracle rung on a card) and its batch-verify
+    route and firehose take it: phase 13's valid gossip True through the
+    mesh, with the poisoned attestation False, as the route judges them
+    with the mesh off. The mesh is turned off again after."""
+    from lighthouse_tpu_torch import bls
+    from lighthouse_tpu_torch.firehose import MeshVerifier
+    from lighthouse_tpu_torch.ops.bls import fused_mul as fm
+
+    items = [chain._attester_item_fast(chain._indexed_attestation_fast(a)) for a in atts]
+    bad = chain._attester_item_fast(chain._indexed_attestation_fast(bad_att))
+    runs = {}
+    try:
+        bls.set_backend("device", device=dev, mesh_devices=_mesh(MESH_SHARDS, dev))
+        mv = chain._mesh_planner()
+        if not isinstance(mv, MeshVerifier) or mv.n_devices != MESH_SHARDS or mv.oracle_fn:
+            raise RuntimeError(f"mesh chain: planner {mv!r}")
+        if chain.create_firehose(synchronous=True).shard_planner is not mv:
+            raise RuntimeError("mesh chain: the chain's firehose has no planner")
+        for s in (mv.mesh_sup, *mv.shard_sups):
+            s.reset()
+        fm.reset_counts()
+        t = time.perf_counter()
+        on = [chain._batch_verify_items(items), chain._batch_verify_items(items + [bad])]
+        on_ms = (time.perf_counter() - t) * 1e3
+        runs["mesh_chain"] = _read_counts("mesh: the chain's batch route")
+        snap = mv.snapshot()
+    finally:
+        bls.set_backend("device", device=dev, mesh_devices=[])
+    if chain._mesh_planner() is not None:
+        raise RuntimeError("mesh chain: the planner outlived the mesh")
+    off = [chain._batch_verify_items(items), chain._batch_verify_items(items + [bad])]
+    if on != off or on != [True, False] or snap["mesh"]["state"] != "HEALTHY":
+        raise RuntimeError(f"mesh chain: verdicts {on} with the mesh, {off} without; {snap}")
+    log(f"mesh (c): phase 13's chain with the mesh on: planner MeshVerifier({MESH_SHARDS}), no "
+        f"oracle rung, the chain's firehose on it; {len(items)} gossip items True, with the "
+        f"poisoned one False ({on_ms:.2f} ms for both), as the route judges them with the mesh "
+        f"off; bls_mesh {snap['mesh']['state']}")
+    return {"items": len(items), "verdicts": on, "ms": on_ms, "snapshot": snap, "runs": runs}
+
+
+def mesh_epoch_check(spec, state_copy, unsharded, dev) -> dict:
+    """Phase 23 (e), epoch: phase 11's parity state (a copy taken before its
+    device boundary) through the boundary over MESH_SHARDS row blocks: its
+    tree root, which hashes every field, equals the unsharded device
+    boundary's; where it does not, the fields are compared one by one to
+    name the first that diverged."""
+    from lighthouse_tpu_torch import epoch_engine
+    from lighthouse_tpu_torch.epoch_engine import engine as epoch_eng
+
+    try:
+        epoch_engine.set_backend("device", device=dev, mesh_devices=_mesh(MESH_SHARDS, dev))
+        t = time.time()
+        if not epoch_engine.maybe_process_epoch_on_device(spec, state_copy):
+            raise RuntimeError("mesh epoch: the device engine refused the state")
+        _sync(dev)
+        dev_s = time.time() - t
+    finally:
+        epoch_engine.set_backend("device", device=dev, mesh_devices=[])
+    blocks = [t.shape[0] for t in epoch_eng.mirror_of(state_copy).cols["effective"]]
+    if state_copy.tree_root() != unsharded.tree_root():
+        _epoch_parity(state_copy, unsharded)  # names the field that diverged
+        raise RuntimeError("mesh epoch: tree_root diverged")
+    log(f"mesh (e): the parity boundary at {len(state_copy.validators)} validators over "
+        f"{MESH_SHARDS} row blocks of {blocks[0]} (first bind included) {dev_s:.3f} s: the tree "
+        f"root (every field) == the unsharded device boundary's")
+    return {"validators": len(state_copy.validators), "blocks": blocks, "device_s": dev_s}
+
+
+def mesh_slasher_check(dev) -> dict:
+    """Phase 23 (e), slasher: phase 17's cell (2^20 x 64, its seed and
+    traffic) cut to one warm-up, four honest ticks and the injected ticks,
+    on an unsharded span store and on one split into MESH_SHARDS validator
+    row blocks: per-pair outputs equal every tick, 4/4 surrounds and
+    doubles, no flag on the honest stream, and equal planes after (compared
+    on the card)."""
+    import numpy as np
+    import torch
+
+    from lighthouse_tpu_torch.slasher.engine import SpanStore
+
+    n_val, hist = 1 << 20, SLASHER_HISTORY
+    rng = np.random.default_rng(0x51A5)
+    pairs = min(n_val, SLASHER_PAIRS)
+    ticks = []
+    for t in range(5):
+        cur = 100 + t // SLASHER_TICKS_PER_EPOCH
+        ticks.append((rng.choice(n_val, size=pairs, replace=False).astype(np.int64),
+                      np.full(pairs, cur - 1, np.int64), np.full(pairs, cur, np.int64),
+                      np.ones(pairs, np.uint32), cur))
+    cur = ticks[-1][4] + 1
+    inj = rng.choice(n_val, size=8, replace=False).astype(np.int64)
+    ticks.append((np.concatenate([inj, inj[:4]]),
+                  np.concatenate([np.full(8, cur - 2, np.int64), np.full(4, cur - 3, np.int64)]),
+                  np.concatenate([np.full(8, cur - 1, np.int64), np.full(4, cur, np.int64)]),
+                  np.concatenate([np.ones(8, np.uint32), np.full(4, 2, np.uint32)]), cur))
+    ticks.append((inj[4:], np.full(4, cur - 2, np.int64), np.full(4, cur - 1, np.int64),
+                  np.full(4, 3, np.uint32), cur))
+    stores = [SpanStore(hist, use_device=True, device=dev),
+              SpanStore(hist, use_device=True, mesh_devices=_mesh(MESH_SHARDS, dev))]
+    ms = [[], []]
+    res = [[], []]
+    for tick in ticks:
+        for k, store in enumerate(stores):
+            t = time.perf_counter()
+            res[k].append(store.apply(*tick[:4], tick[4]))
+            ms[k].append((time.perf_counter() - t) * 1e3)
+    for a, b in zip(*res):
+        for key in a:
+            if not np.array_equal(a[key], b[key]):
+                raise RuntimeError(f"mesh slasher: {key} differs between the stores")
+    honest = sum(int(r[f].sum()) for r in res[1][:5] for f in ("min_flag", "max_flag", "dbl_flag"))
+    surround, double = int(res[1][5]["min_flag"][8:].sum()), int(res[1][6]["dbl_flag"].sum())
+    st = stores[1].stats()
+    if honest or surround != 4 or double != 4 or st["mode"] != "device" or st["demotions"]:
+        raise RuntimeError(f"mesh slasher: {honest} honest flags, surrounds {surround}/4, doubles "
+                           f"{double}/4; {st}")
+    t = time.time()  # the planes compared where they live, the blocks joined on the card
+    if stores[0].mode != "device" or stores[1].mode != "device":
+        raise RuntimeError("mesh slasher: a store left the card")
+    for p, whole in enumerate(stores[0].dev):
+        joined = torch.cat([block[p] for block in stores[1].dev])
+        if not torch.equal(whole[:n_val], joined[:n_val]):
+            raise RuntimeError("mesh slasher: the planes differ")
+        del joined
+    planes_s = time.time() - t
+    del stores
+    torch.cuda.empty_cache()
+    out = {"validators": n_val, "history_length": hist, "blocks": MESH_SHARDS,
+           "ticks": len(ticks), "ms_per_tick": {"unsharded": _spread(ms[0][1:5]),
+                                                "blocked": _spread(ms[1][1:5])},
+           "surround": surround, "double": double, "false_positives": honest,
+           "planes_compare_s": planes_s}
+    log(f"mesh (e): the slasher cell {n_val} x {hist} over {MESH_SHARDS} validator row blocks: "
+        f"per-pair outputs == the unsharded store's over {len(ticks)} ticks, surrounds "
+        f"{surround}/4, doubles {double}/4, {honest} flags on the honest ticks; planes equal "
+        f"on the card ({planes_s:.2f} s to compare); ms per honest tick unsharded "
+        f"{json.dumps(out['ms_per_tick']['unsharded'])}, blocked "
+        f"{json.dumps(out['ms_per_tick']['blocked'])}")
+    return out
+
+
+# --------------------------------------------------------------------------------------
 # Kernel checks
 # --------------------------------------------------------------------------------------
 
@@ -5492,9 +5934,9 @@ def plan_timing(label: str, rows: int, dev, gen) -> dict:
     b = _operand(rows, sched.n_b, sched.in_bounds[1], gen, dev)
     C = fm.cluster_size(rows, sched.L) if sched.has_out else 1
     _check_layouts(sched=sched, C=C)
-    ms = _time_graph(lambda: fm.cuda_fused(sched, a, b), 100)
-    host_ms = _time(lambda: fm.cuda_fused(sched, a, b), 100)
-    plain_ms = _time(lambda: _plain_rows(lambda x, y: fm.plain_plan(sched, x, y), a, b), 10)
+    ms = _time_graph(lambda: fm.cuda_fused(sched, a, b), TIMING_REPS)
+    host_ms = _time(lambda: fm.cuda_fused(sched, a, b), TIMING_REPS)
+    plain_ms = _time(lambda: _plain_rows(lambda x, y: fm.plain_plan(sched, x, y), a, b), PLAIN_REPS)
     n_bytes = rows * (sched.n_a + sched.n_b + sched.R) * 200 + sched.ints.nbytes + sched.i64.nbytes
     bound_ms, bound_by = _bound(rows * _step_ops(sched), n_bytes)
     log(f"plan {sched.kind} {label} rows={rows} L={sched.L} R={sched.R} C={C}: "
@@ -6008,7 +6450,7 @@ def main() -> int:
     att_per_s = st.verified / wall
     n_new = exact_checks(runs["gossip"]["log"], dev, gen, done)
     t = time.time()
-    n_alone = min(8, len(pool) // 64)
+    n_alone = min(FIREHOSE_ALONE, len(pool) // 64)
     for i in range(n_alone):
         if not verify_gossip(pool[64 * i: 64 * (i + 1)]):
             raise RuntimeError("a standalone gossip batch did not verify")
@@ -6027,6 +6469,7 @@ def main() -> int:
         "drop_rate": st.dropped / n_stream, "batches_formed": st.batches_formed,
         "p50_queue_ms": st.p50_latency_s * 1e3, "p99_queue_ms": st.p99_latency_s * 1e3,
         "wall_s": wall, "slo": slo, "standalone_att_per_s": alone_per_s,
+        "standalone_ms_per_batch": alone_s * 1e3 / n_alone,
         "launches_per_batch": runs["gossip"]["total"] / st.batches_formed,
         "supervisor": snap, "card": card,
     }
@@ -6055,6 +6498,21 @@ def main() -> int:
     log(f"bisection: 64 items, poisoned at {list(bad_pos)}: exactly those False; "
         f"{len(calls)} verify calls (reference algorithm: {n_calls_ref}), sizes "
         f"{[len(c) for c in calls]}; {n_new} new shapes checked exact")
+
+    # 23 (a), (b). the serving mesh: phase 5's batches and the firehose over MESH_SHARDS
+    # logical shards on the card (23 (c)-(e) run where their fixtures live: after phase
+    # 13, inside phases 11, 14 and 16, after phase 17; 23 (f) after phase 22)
+    p23, p23_s = {}, {}
+    t = time.time()
+    p23["a"] = mesh_main_phase(cache, batches, poisoned, small, small_bad, small_oracle,
+                               t_valid * 1e3 / n_timed, dev)
+    runs.update(p23["a"].pop("runs"))
+    p23_s["a"] = time.time() - t
+    t = time.time()
+    p23["b"] = mesh_firehose_phase(cache, pool, bis_items, bad_pos, sk0, dev, verify_gossip,
+                                   alone_per_s)
+    runs.update(p23["b"].pop("runs"))
+    p23_s["b"] = time.time() - t
 
     # 11. epoch boundaries on the device (BASELINE config #4)
     from lighthouse_tpu_torch.oracle import curves as oc
@@ -6131,6 +6589,10 @@ def main() -> int:
                   "chain_aggregates", "chain_firehose")
     n_new = sum(exact_checks(runs[k]["log"], dev, gen, done) for k in chain_runs)
     log(f"chain: {n_new} new shapes checked exact; phase {time.time() - t:.1f} s")
+    t = time.time()
+    p23["c"] = mesh_chain_phase(chain, gossip13, ch.pop("gossip_bad"), dev)
+    runs.update(p23["c"].pop("runs"))
+    p23_s["c"] = time.time() - t
 
     # 14. a sampling node's slot of blob data on the same chain
     t = time.time()
@@ -6199,6 +6661,9 @@ def main() -> int:
     sm["phase_s"] = time.time() - t
     log(f"slasher: launches {json.dumps({k: runs[k]['by'] for k in slasher_runs})}; every shape "
         f"checked in phase 4 ({n_new} new); phase {sm['phase_s']:.1f} s")
+    t = time.time()
+    p23["e_slasher"] = mesh_slasher_check(dev)
+    p23_s["e_slasher"] = time.time() - t
 
     # 18. node C restarts from disk
     t = time.time()
@@ -6310,6 +6775,26 @@ def main() -> int:
         f"kernel rows timed anew; phase {ln['phase_s']:.1f} s "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in part_s.items())})")
 
+    # 23 (f). every shape the mesh ran held exact against its plain version, its new rows timed
+    t = time.time()
+    mesh_runs = ("mesh_combined", "mesh_pershard", "mesh_api", "mesh_firehose", "mesh_ladder",
+                 "mesh_chain")
+    n_new = sum(exact_checks(runs[k]["log"], dev, gen, done) for k in mesh_runs)
+    known = {(r["kind"], r["name"], r["rows"]): r for r in krows}
+    mesh_rows = timed_rows({k: runs[k]["log"] for k in mesh_runs}, dev, gen, known=known)
+    krows += mesh_rows
+    p23_s["f"] = time.time() - t
+    p23_s["e_epoch"] = parity["mesh"]["phase_s"]
+    p23.update(e_epoch=parity["mesh"], seconds=p23_s)
+    p23["phase_s"] = sum(p23_s.values())
+    p23["repeat_cuts"] = _repeat_cuts(block_t, epoch_m, km, nm, lm, ka, fh, krows)
+    saved = sum(c["saved_s"] for c in p23["repeat_cuts"].values())
+    log(f"mesh: launches {json.dumps({k: runs[k]['by'] for k in mesh_runs})}; {n_new} new shapes "
+        f"checked exact; {sum(1 for r in mesh_rows if not r.get('reused'))} of {len(mesh_rows)} "
+        f"kernel rows timed anew; phase 23 {p23['phase_s']:.1f} s "
+        f"({', '.join(f'{k} {v:.1f} s' for k, v in p23_s.items())}); the repeat cuts saved "
+        f"{saved:.1f} s ({', '.join(f'{k} {c['saved_s']:.2f} s' for k, c in p23['repeat_cuts'].items())})")
+
     log(f"elapsed: {time.time() - t_start:.1f} s")
     table = []
     for r in krows:
@@ -6364,6 +6849,7 @@ def main() -> int:
                             "launches": {k: runs[k]["by"] for k in vector_runs}},
                 "local_network": {**ln, "fabricated": fb, "karabina": ka,
                                   "launches": {k: runs[k]["by"] for k in ln_runs}},
+                "mesh": {**p23, "launches": {k: runs[k]["by"] for k in mesh_runs}},
             }, f, indent=1)
     print(card, flush=True)
     print(json.dumps({"kernels": table}), flush=True)

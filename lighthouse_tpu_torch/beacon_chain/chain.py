@@ -20,8 +20,8 @@ sampling (``enable_peerdas``) decides availability from columns verified by
 ``beacon_chain.data_columns`` through the port's ``kzg`` engine. On a
 durable store (a WAL ``LevelStore``) every import persists fork choice
 (``fork_choice.persistence``); ``recovery.recover_node_state`` restarts a
-node from it. The mesh planner is None (the mesh is off until
-multi-GPU serving, ROADMAP Queue 1 item 6).
+node from it. Batch verifies and the firehose go through the serving
+mesh's ``MeshVerifier`` when ``bls.set_backend(mesh_devices=)`` set one.
 The light-client server cache (``light_client.LightClientServerCache``)
 rides the block-observer seam and persists its update archive in the hot
 store.
@@ -154,14 +154,14 @@ class BeaconChain:
 
         self.early_attester_cache = EarlyAttesterCache()
         # sharded serving tier (firehose/sharding.py over bls/mesh.py):
-        # resolved lazily on the first batch verify — None when
-        # LIGHTHOUSE_MESH_DEVICES leaves the mesh off (the single-device
-        # path, bit-identical to the pre-mesh engine). Creation is guarded
+        # resolved lazily on a batch verify, again whenever the bls backend
+        # or its mesh changed — None while no mesh is set (the
+        # single-device path, unchanged). Creation is guarded
         # by its own small lock (gossip + HTTP threads race the first
         # verify); dispatches never hold it
         import threading as _threading
 
-        self._mesh_planner_state = "unset"
+        self._mesh_planner_state = None  # (backend, mesh) -> planner
         self._mesh_planner_lock = _threading.Lock()
 
         # genesis anchor: the canonical block root needs the header's
@@ -962,21 +962,55 @@ class BeaconChain:
 
     def _mesh_planner(self):
         """The sharded serving tier for this chain, or None when the mesh
-        is off (``LIGHTHOUSE_MESH_DEVICES`` unset/1 — the single-device
-        path stays bit-identical to the pre-mesh engine). Resolved once;
-        the verifier itself holds no state, so it is shared by the batch
-        paths and the firehose threads."""
-        if self._mesh_planner_state == "unset":
+        is off (no ``bls.set_backend(mesh_devices=)`` yet, or ``[]`` — the
+        single-device path, unchanged). Resolved once per (bls backend,
+        mesh), so a later ``bls.set_backend`` that changes either is seen on
+        the next batch; the verifier itself holds no state, so it is shared
+        by the batch paths and the firehose threads."""
+        key = (bls.get_backend(), tuple(bls.get_mesh() or ()))
+        state = self._mesh_planner_state
+        if state is None or state[0] != key:
             with self._mesh_planner_lock:
-                if self._mesh_planner_state == "unset":
-                    self._mesh_planner_state = self._build_mesh_planner()
-        return self._mesh_planner_state
+                state = self._mesh_planner_state
+                if state is None or state[0] != key:
+                    state = self._mesh_planner_state = (key, self._build_mesh_planner())
+        return state[1]
 
     def _build_mesh_planner(self):
-        """None: the mesh is off, the only state the port has until the
-        sharded serving tier comes with multi-GPU serving (ROADMAP Queue 1
-        item 6)."""
-        return None
+        """A ``MeshVerifier`` over ``bls.get_mesh()`` when the bls backend is
+        ``"device"`` and a mesh is set, else None. Its rungs: the mesh and
+        its halves, then the single device (the chain's cache). A CPU mesh
+        ends in the CPU oracle, as the reference does; a mesh with a card
+        in it has no oracle rung — a card's fault is never handed to the
+        CPU, so the ladder fails closed after the single device."""
+        if bls.get_backend() != "device":
+            return None
+        devices = bls.get_mesh()
+        if devices is None:
+            return None
+        from ..bls import backend as tb
+        from ..bls import mesh as bls_mesh
+        from ..firehose.sharding import MeshVerifier
+
+        mesh_backend = bls_mesh.make_mesh_backend(self.pubkey_cache.device_array, devices)
+
+        def single(its):
+            cache = self.pubkey_cache.device_array()
+            return tb.verify_indexed_sets_device(cache, its, device=cache.device)
+
+        oracle = None
+        if all(d.type == "cpu" for d in devices):
+            def oracle(its):
+                return self._verify_items_via_sets(its, oracle=True)
+
+        return MeshVerifier(
+            len(devices),
+            dispatch_fn=mesh_backend.dispatch,
+            stage_fn=mesh_backend.stage,
+            probe_fn=mesh_backend.probe,
+            single_fn=single,
+            oracle_fn=oracle,
+        )
 
     def _batch_verify_items_inner(self, items) -> bool:
         from ..resilience import bls_supervisor

@@ -24,7 +24,8 @@ trip pays off only in batches); under ``"native"`` ``verify``,
 
 ``verify_signature_sets`` and ``warmup`` take ``device=``; a call that names
 none runs on the device given to ``set_backend`` (default CUDA, raising
-without it). Callers that cannot pass one, such as block processing, follow
+without it). ``set_backend(mesh_devices=)`` spreads the device backend's
+batches over a serving mesh (``bls/mesh.py``, ``bls/sharded.py``). Callers that cannot pass one, such as block processing, follow
 ``set_backend``: the CPU tests pass ``device="cpu"`` to either.
 """
 
@@ -51,17 +52,29 @@ PUBKEY_PARSE_CACHE = 8192
 _BACKEND = "device"
 _DEVICE = None  # None: CUDA (device.resolve_device)
 _KARABINA = False
+_MESH = None  # None: the single-device path; else a list of torch devices
 
 
-def set_backend(name: str, *, device=None, karabina: bool | None = None) -> None:
+def set_backend(name: str, *, device=None, karabina: bool | None = None,
+                mesh_devices=None) -> None:
     """Select the backend; ``device`` is where ``"device"`` runs when a call
     names none (the counterpart of the reference's JAX default device);
     ``karabina`` puts the device backend's final exponentiations on
     Karabina squaring (the reference's LIGHTHOUSE_PAIRING_KARABINA=1, off
-    until a call turns it on, as there); None keeps the switch as it is."""
-    global _BACKEND, _DEVICE, _KARABINA
+    until a call turns it on, as there); None keeps the switch as it is.
+    ``mesh_devices`` (the reference's LIGHTHOUSE_MESH_DEVICES) is the
+    serving mesh of the device backend, an explicit device list floored to
+    a power of two (``bls.mesh.mesh_devices``): an empty list or one entry
+    turns the mesh off, and the path stays the single-device one; None
+    keeps the mesh as it is, as for ``karabina`` (off until a call sets
+    it)."""
+    global _BACKEND, _DEVICE, _KARABINA, _MESH
     if name not in ("device", "oracle", "native"):
         raise ValueError(f"unknown bls backend {name!r}")
+    if mesh_devices is not None:
+        from .mesh import mesh_devices as _mesh_of
+
+        _MESH = _mesh_of(mesh_devices)
     _BACKEND = name
     _DEVICE = device
     if karabina is not None:
@@ -74,6 +87,12 @@ def get_backend() -> str:
 
 def get_device():
     return _DEVICE
+
+
+def get_mesh():
+    """The device backend's serving mesh (a list of ``torch.device``s), or
+    None when the mesh is off."""
+    return None if _MESH is None else list(_MESH)
 
 
 def get_karabina() -> bool:
@@ -303,11 +322,13 @@ def prepare_sets(sets, device=None):
     return torch.from_numpy(pks).to(dev), torch.from_numpy(mask).to(dev), sig, u0, u1, n
 
 
-def verify_prepared_sets(prepared, *, scalars=None) -> bool:
+def verify_prepared_sets(prepared, *, scalars=None, mesh=None) -> bool:
     """The device arm's device half on ``prepare_sets``' output: per-set
     pubkey aggregation (``aggregate_stage``), padding of the aggregates by
-    broadcast, then ``verify_signature_sets_device_h2c``. ``scalars``
-    ([bucket(n)] uint64) injects the RLC scalars (tests); None draws them."""
+    broadcast, then ``verify_signature_sets_device_h2c``, or, over a
+    ``mesh`` (a device list), ``sharded.verify_signature_sets_sharded_h2c``
+    (reference :249-259). ``scalars`` (one uint64 per padded row) injects
+    the RLC scalars (tests); None draws them."""
     import torch
 
     from .backend import aggregate_stage, verify_signature_sets_device_h2c
@@ -319,6 +340,10 @@ def verify_prepared_sets(prepared, *, scalars=None) -> bool:
     n_pad = sig.shape[0]
     if n_pad > n:
         pk_agg = torch.cat([pk_agg, pk_agg[:1].expand((n_pad - n,) + pk_agg.shape[1:])])
+    if mesh is not None:
+        from .sharded import verify_signature_sets_sharded_h2c
+
+        return verify_signature_sets_sharded_h2c(pk_agg, sig, u0, u1, n, mesh, scalars=scalars)
     return verify_signature_sets_device_h2c(pk_agg, sig, u0, u1, n, scalars=scalars)
 
 
@@ -331,7 +356,8 @@ def verify_signature_sets(sets, *, device=None) -> bool:
         return _verify_sets_oracle(sets)
     if _BACKEND == "native":
         return _verify_sets_native(sets)
-    return verify_prepared_sets(prepare_sets(sets, _DEVICE if device is None else device))
+    prepared = prepare_sets(sets, _DEVICE if device is None else device)
+    return verify_prepared_sets(prepared, mesh=_MESH)
 
 
 def verify_signature_sets_oracle(sets) -> bool:

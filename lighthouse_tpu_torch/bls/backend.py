@@ -135,13 +135,14 @@ def _scalars(scalars, n_pad: int, n: int, device) -> torch.Tensor:
     return scalars_to_torch(scalars, device)
 
 
-def prepare_batch(items, scalars=None, device=None) -> dict:
+def prepare_batch(items, scalars=None, device=None, *, n_pad: int | None = None) -> dict:
     """The host half: bucket padding, hash_to_field, signature parsing, RLC
-    scalars. ``items`` is a list of (validator_indices, message, sig_bytes).
+    scalars. ``items`` is a list of (validator_indices, message, sig_bytes);
+    ``n_pad`` (default ``bucket(len(items))``) is the padded row count.
     Returns the stage inputs as tensors on ``device``."""
     dev = resolve_device(device)
     n = len(items)
-    n_pad = bucket(n)
+    n_pad = n_pad or bucket(n)
     k_pad = bucket(max((len(ix) for ix, _, _ in items), default=1))
     idx = np.zeros((n_pad, k_pad), dtype=np.int64)
     mask = np.zeros((n_pad, k_pad), dtype=bool)

@@ -113,6 +113,12 @@ def build_parser() -> argparse.ArgumentParser:
         help="comma-separated hex ENRs for discv5-style discovery",
     )
     bn.add_argument(
+        "--mesh-devices", default=None,
+        help="comma-separated torch devices of the BLS serving mesh (e.g. "
+             "cuda:0,cuda:1; repeats are logical shards on one device), "
+             "floored to a power of two; unset or one device = no mesh",
+    )
+    bn.add_argument(
         "--validator-monitor-auto", action="store_true",
         help="monitor every validator (validator_monitor.rs auto mode)",
     )
@@ -217,6 +223,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def run_bn(args) -> "object":
     """Build and start a beacon node from parsed ``bn`` arguments."""
+    from .bls.mesh import parse_mesh_devices
     from .client import ClientBuilder, ClientConfig
 
     spec = _spec(args)
@@ -238,6 +245,7 @@ def run_bn(args) -> "object":
             int(x) for x in args.validator_monitor_indices.split(",") if x
         ),
         device=args.device,
+        mesh_devices=parse_mesh_devices(args.mesh_devices),
     )
     builder = ClientBuilder(spec, cfg)
     if args.checkpoint_sync_url:

@@ -46,6 +46,8 @@ class ClientConfig:
     boot_nodes: str = ""  # comma-separated UDP boot-node addresses
     boot_enrs: str = ""   # comma-separated hex ENRs (discv5-style discovery)
     device: str | None = None  # where the node runs; None = CUDA
+    # the BLS serving mesh (bls.set_backend(mesh_devices=)); None = no mesh
+    mesh_devices: tuple | list | None = None
 
 
 class Client:
@@ -252,7 +254,7 @@ class ClientBuilder:
         cfg = self.config
         init_logging(cfg.debug_level)
         dev = resolve_device(cfg.device)
-        _place_backends(dev)
+        _place_backends(dev, cfg.mesh_devices)
 
         if cfg.datadir:
             import os
@@ -443,13 +445,14 @@ class ClientBuilder:
         )
 
 
-def _place_backends(dev) -> None:
+def _place_backends(dev, mesh_devices=None) -> None:
     """Put every device backend on ``dev``, keeping each one's name (the
-    CLI's ``--bls-backend`` / ``--epoch-backend`` choose those)."""
+    CLI's ``--bls-backend`` / ``--epoch-backend`` choose those); the bls
+    backend takes the node's serving mesh (None: no mesh)."""
     from .. import bls, epoch_engine, slasher
     from ..kzg import engine as kzg_engine
 
-    bls.set_backend(bls.get_backend(), device=dev)
+    bls.set_backend(bls.get_backend(), device=dev, mesh_devices=list(mesh_devices or ()))
     epoch_engine.set_backend(epoch_engine.get_backend(), device=dev)
     kzg_engine.set_kzg_backend(kzg_engine.get_kzg_backend(), device=dev)
     slasher.set_backend(slasher.get_backend(), device=dev)

@@ -440,13 +440,23 @@ __global__ void chain_kernel(ChainArgs g, const int64_t* __restrict__ base,
 
 size_t plan_scr_bytes(int threads) { return static_cast<size_t>(threads / 32) * kScrWords * 4; }
 
+// The dynamic shared-memory opt-in is an attribute of the kernel on the
+// CURRENT device, so each kernel keeps the size it configured per device
+// (0 = not yet configured there: the 48 KiB every launch may take unasked).
+constexpr int kMaxDevices = 64;
+
 template <typename K>
-int configure(K kernel, size_t smem, size_t* configured) {
-  if (smem > *configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+int configure(K kernel, size_t smem, size_t (&configured)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  const size_t have = configured[dev] ? configured[dev] : size_t(48 * 1024);
+  if (smem > have) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
-    *configured = smem;
+    configured[dev] = smem;
   }
   return 0;
 }
@@ -494,8 +504,8 @@ extern "C" int lh_plan_launch(const PlanDesc* desc, const void* a, long long a_r
                               long long b_es, void* out, const void* f8, int rows,
                               int C, int threads, long long smem, void* stream) {
   if (rows <= 0) return 0;
-  static size_t configured = 48 * 1024;
-  int e = configure(plan_kernel, static_cast<size_t>(smem), &configured);
+  static size_t configured[kMaxDevices] = {};
+  int e = configure(plan_kernel, static_cast<size_t>(smem), configured);
   if (e) return e;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = launch_config(rows * C, threads, smem, stream, attr, C);
@@ -511,8 +521,8 @@ extern "C" int lh_chain_launch(const ChainArgs* args, const void* base, void* ou
                                int lane_words, int all_words, long long smem,
                                void* stream) {
   if (rows <= 0) return 0;
-  static size_t configured = 48 * 1024;
-  int e = configure(chain_kernel, static_cast<size_t>(smem), &configured);
+  static size_t configured[kMaxDevices] = {};
+  int e = configure(chain_kernel, static_cast<size_t>(smem), configured);
   if (e) return e;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = launch_config(rows * C, threads, smem, stream, attr, C);

@@ -16,6 +16,8 @@ Backends:
 
 Unlike the reference there is no ``auto`` backend and no environment
 variable: nothing falls back to numpy or the CPU because no card is present.
+``set_backend(mesh_devices=)`` (the reference's ``sharding=``) sweeps the
+registry in row blocks over a device list (``sharded.py``).
 The one demotion left is the reference's fault domain: a supervised fault
 of the sweep (``epoch_device``) hands that boundary to the numpy path with
 the state untouched.
@@ -31,18 +33,26 @@ from .deltas import (  # noqa: F401 — re-exported for the mutation sites
 
 _BACKEND = "device"
 _DEVICE = None  # None: CUDA (device.resolve_device)
+_MESH = None  # None: one device; else the row blocks' devices
 # (fork, "device" | "numpy") -> epoch boundaries that took that path since
 # the last reset_boundary_counts (the conformance phase's per-fork check)
 _BOUNDARIES: dict = {}
 
 
-def set_backend(name: str, *, device=None) -> None:
-    """Select the epoch backend; ``device`` is where ``"device"`` runs."""
-    global _BACKEND, _DEVICE
+def set_backend(name: str, *, device=None, mesh_devices=None) -> None:
+    """Select the epoch backend; ``device`` is where ``"device"`` runs;
+    ``mesh_devices`` (an explicit device list, ``bls.mesh.mesh_devices``;
+    an empty list or one entry: off) splits the sweep into row blocks, and
+    None keeps the mesh as it is, as ``bls.set_backend`` does."""
+    global _BACKEND, _DEVICE, _MESH
     if name not in ("device", "numpy"):
         raise ValueError(f"unknown epoch backend {name!r}")
     _BACKEND = name
     _DEVICE = device
+    if mesh_devices is not None:
+        from ..bls.mesh import mesh_devices as _mesh_of
+
+        _MESH = _mesh_of(mesh_devices)
 
 
 def get_backend() -> str:
@@ -51,6 +61,10 @@ def get_backend() -> str:
 
 def get_device():
     return _DEVICE
+
+
+def get_mesh():
+    return None if _MESH is None else list(_MESH)
 
 
 def device_backend_active() -> bool:
@@ -73,7 +87,7 @@ def maybe_process_epoch_on_device(spec, state, device=None) -> bool:
         from .engine import process_epoch_on_device
 
         handled = process_epoch_on_device(
-            spec, state, device=_DEVICE if device is None else device
+            spec, state, device=_DEVICE if device is None else device, mesh_devices=_MESH
         )
     key = (getattr(state, "fork_name", "phase0"), "device" if handled else "numpy")
     _BOUNDARIES[key] = _BOUNDARIES.get(key, 0) + 1
@@ -96,7 +110,7 @@ def prepare_state(state, device=None):
         return None
     from .engine import prepare_state as _prep
 
-    return _prep(state, device=_DEVICE if device is None else device)
+    return _prep(state, device=_DEVICE if device is None else device, mesh_devices=_MESH)
 
 
 def engine_stats(state) -> dict | None:

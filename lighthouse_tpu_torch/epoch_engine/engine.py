@@ -14,6 +14,10 @@ Fork coverage: phase0, the altair family (altair/bellatrix/capella/deneb)
 and electra, whose only residual host work is appending brand-new
 validators for unknown-pubkey deposits (proof of possession included) and
 rebuilding the pending queues from the sweep's stop positions.
+
+``mesh_devices`` (the reference's ``sharding=``) splits the mirror into row
+blocks over a device list and runs ``sharded.run_sweep_sharded``; None (or
+one device) keeps the single-device sweep.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..bls.mesh import mesh_devices as _mesh_of
 from ..device import resolve_device
 from .kernels import I64_MAX, consts_for, from_device, queue_bucket, run_sweep, sweep_headroom
 from .mirror import RegistryMirror
@@ -36,23 +41,30 @@ def supported_fork(fork: str) -> bool:
     return fork in _SUPPORTED_FORKS
 
 
-def mirror_of(state, create: bool = False, device=None) -> RegistryMirror | None:
-    """The state's mirror; with ``create``, one on ``device`` (a mirror bound
-    to another device is replaced)."""
+def mirror_of(state, create: bool = False, device=None, mesh=None) -> RegistryMirror | None:
+    """The state's mirror; with ``create``, one on ``device`` or in row
+    blocks over ``mesh`` (a mirror bound elsewhere is replaced)."""
     m = getattr(state, _MIRROR_ATTR, None)
-    if create and (m is None or m.device != device):
-        m = RegistryMirror(device)
+    if create and (m is None or m.mesh != mesh or (mesh is None and m.device != device)):
+        m = RegistryMirror(device, mesh)
         object.__setattr__(state, _MIRROR_ATTR, m)
     return m
 
 
-def prepare_state(state, device=None) -> RegistryMirror | None:
+def _placement(device, mesh_devices):
+    """(device, mesh): the mesh's first device when a mesh is given."""
+    mesh = _mesh_of(mesh_devices)
+    return (resolve_device(device) if mesh is None else mesh[0]), mesh
+
+
+def prepare_state(state, device=None, mesh_devices=None) -> RegistryMirror | None:
     """Bind a mirror + delta journal ahead of the first epoch boundary so
     block processing starts journaling immediately (state_advance warm-up
     hook). No-op for forks the sweep does not cover."""
     if not supported_fork(getattr(state, "fork_name", "phase0")):
         return None
-    m = mirror_of(state, create=True, device=resolve_device(device))
+    dev, mesh = _placement(device, mesh_devices)
+    m = mirror_of(state, create=True, device=dev, mesh=mesh)
     m.sync(state)
     return m
 
@@ -61,7 +73,7 @@ def _host(x) -> np.ndarray:
     return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
-def _device_sweep(spec, state, dev: torch.device):
+def _device_sweep(spec, state, dev: torch.device, mesh=None):
     """The DEVICE region of one epoch boundary: mirror bind/sync, column
     upload, the int64 headroom proof, the sweep, and a synchronize. No
     ``state`` mutation happens in here, and a deferred CUDA fault surfaces
@@ -71,7 +83,7 @@ def _device_sweep(spec, state, dev: torch.device):
     from ..state_transition.beacon_state_util import get_current_epoch
 
     fork = getattr(state, "fork_name", "phase0")
-    mirror = mirror_of(state, create=True, device=dev)
+    mirror = mirror_of(state, create=True, device=dev, mesh=mesh)
     mirror.sync(state)
 
     consts = consts_for(spec, fork)
@@ -123,21 +135,28 @@ def _device_sweep(spec, state, dev: torch.device):
         "epoch_churn_cumsum_headroom", bound, I64_MAX,
         "every sum and product of this sweep fits int64 (per-sweep, from the registry)",
     )
-    outs = run_sweep(consts, cols, scalars)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    if mesh is None:
+        outs = run_sweep(consts, cols, scalars)
+    else:
+        from .sharded import run_sweep_sharded
+
+        outs = run_sweep_sharded(consts, cols, scalars, mesh)
+    for d in {dev, *(mesh or ())}:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
     return mirror, outs
 
 
-def process_epoch_on_device(spec, state, device=None) -> bool:
+def process_epoch_on_device(spec, state, device=None, mesh_devices=None) -> bool:
     """Run one epoch transition through the device engine on ``device``
     (default CUDA; raises without it — resolved before the supervised
-    region, so a missing card is never taken for a fault). Returns False
+    region, so a missing card is never taken for a fault), or in row blocks
+    over ``mesh_devices`` (a device list; None or one entry: off). Returns False
     (state untouched) when the state's fork family has no sweep, when the
     ``epoch_device`` fault domain has the backend quarantined, or when the
     sweep faults — the numpy path then handles this boundary (the
     degradation ladder's device -> numpy demotion)."""
-    dev = resolve_device(device)
+    dev, mesh = _placement(device, mesh_devices)
     fork = getattr(state, "fork_name", "phase0")
     if not supported_fork(fork):
         return False
@@ -148,7 +167,7 @@ def process_epoch_on_device(spec, state, device=None) -> bool:
         sup.note_fallback(rung="numpy")
         return False
     try:
-        mirror, outs = sup.run("epoch.sweep", lambda: _device_sweep(spec, state, dev))
+        mirror, outs = sup.run("epoch.sweep", lambda: _device_sweep(spec, state, dev, mesh))
     except SupervisedFault:
         # device state is indeterminate: drop the mirror so a later attempt
         # re-binds from scratch, and let the numpy path own this boundary

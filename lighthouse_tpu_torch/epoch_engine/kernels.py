@@ -187,10 +187,14 @@ def to_device(arr: np.ndarray, device, epochs: bool = False) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
-def from_device(t: torch.Tensor, epochs: bool = False) -> np.ndarray:
-    """A device column -> the host's uint64 (bool) array; ``epochs`` maps FAR
-    back to FAR_FUTURE_EPOCH. Negative values cannot be u64 and raise."""
-    a = t.detach().cpu().numpy()
+def from_device(t, epochs: bool = False) -> np.ndarray:
+    """A device column (one tensor, or its row blocks in order) -> the
+    host's uint64 (bool) array; ``epochs`` maps FAR back to
+    FAR_FUTURE_EPOCH. Negative values cannot be u64 and raise."""
+    if isinstance(t, (list, tuple)):
+        a = np.concatenate([x.detach().cpu().numpy() for x in t])
+    else:
+        a = t.detach().cpu().numpy()
     if a.dtype == np.bool_:
         return a
     if a.size and int(a.min()) < 0:
@@ -249,10 +253,86 @@ def sweep_headroom(C: EpochConsts, effective, active, balances, inactivity,
 # =============================================================================
 # sweep stages
 # =============================================================================
+#
+# Each family's sweep is cut at its registry-wide reductions so that the
+# sharded sweep (``sharded.py``) runs the same stages on row blocks: a
+# block's ``_partials`` (masks + partial sums), the sum of every block's
+# partials, ``_globals`` (the scalars the deltas read), then the
+# per-validator stages. The queue stages (exit ranks, the activation queue,
+# the phase0 proposer micro-rewards, electra's deposits and consolidations)
+# take their cross-row inputs as arguments.
 
 
 def _sum_where(mask, x):
     return torch.where(mask, x, 0).sum()
+
+
+def _flag_mask(part, flag: int, active_mask, slashed):
+    return active_mask & ((part & (1 << flag)) != 0) & ~slashed
+
+
+# positions in the partials vector
+P_TOTAL, P_PREV_TB, P_CUR_TB, P_FLAG0, P_ACTIVE, P_EJECT, P_EJECT_EFF, P_EXIT_MAX = (
+    0, 1, 2, 3, 6, 7, 8, 9)
+
+
+def _partials(C: EpochConsts, cols, cur_ep: int):
+    """Masks of one row block (or the whole registry) and its partial
+    reductions as one int64 vector: active, previous-target and
+    current-target effective balance, the three flag (phase0: source,
+    target, head) balances, the active and ejection counts, the ejected
+    effective balance and the largest exit epoch short of FAR. Every entry
+    but the last adds across blocks; the last takes the maximum."""
+    eff, sl = cols["effective"], cols["slashed"]
+    act, ext = cols["activation"], cols["exit"]
+    prev_ep = max(cur_ep - 1, 0)
+    active_cur = (act <= cur_ep) & (cur_ep < ext)
+    active_prev = (act <= prev_ep) & (prev_ep < ext)
+    if C.family == "phase0":
+        flags = [cols["src_mask"], cols["tgt_mask"], cols["head_mask"]]
+        prev_tgt, cur_tgt = cols["tgt_mask"], cols["cur_tgt_mask"]
+    else:
+        flags = [_flag_mask(cols["prev_part"], f, active_prev, sl) for f in range(3)]
+        prev_tgt = flags[TIMELY_TARGET_FLAG_INDEX]
+        cur_tgt = _flag_mask(cols["cur_part"], TIMELY_TARGET_FLAG_INDEX, active_cur, sl)
+    eject = active_cur & (eff <= C.ejection_balance) & (ext == FAR)
+    sums = torch.stack([
+        _sum_where(active_cur, eff), _sum_where(prev_tgt, eff), _sum_where(cur_tgt, eff),
+        *(_sum_where(m, eff) for m in flags),
+        active_cur.sum(), eject.sum(), _sum_where(eject, eff),
+        torch.where(ext != FAR, ext, 0).max(),
+    ])
+    masks = {"active_cur": active_cur, "active_prev": active_prev, "flags": flags,
+             "prev_tgt": prev_tgt, "eject": eject}
+    return masks, sums
+
+
+def combine_partials(parts: list) -> torch.Tensor:
+    """Row blocks' partials vectors (one device) -> the registry's."""
+    p = torch.stack(parts)
+    return torch.cat([p[:, :P_EXIT_MAX].sum(0), p[:, P_EXIT_MAX:].max(0).values])
+
+
+def _globals(C: EpochConsts, red, scalars) -> dict:
+    """The registry-wide scalars every per-validator stage reads: total and
+    target balances, justification and finalization, the flag increments,
+    and the registry counts."""
+    inc = C.effective_balance_increment
+    cur_ep = scalars["cur_epoch"]
+    total = red[P_TOTAL].clamp(min=inc)
+    do_just = cur_ep > 1
+    new_bits, cj_prev, cj_cur, fin_sel, f_new = _justification(
+        do_just, total, red[P_PREV_TB].clamp(min=inc), red[P_CUR_TB].clamp(min=inc),
+        scalars["bits"], scalars["prev_justified_epoch"], scalars["cur_justified_epoch"],
+        scalars["finalized_epoch"], cur_ep,
+    )
+    return {
+        "total": total, "f_new": f_new, "bits": new_bits, "cj_prev": cj_prev, "cj_cur": cj_cur,
+        "fin_sel": fin_sel, "do_just": do_just,
+        "flag_inc": torch.stack([red[P_FLAG0 + f].clamp(min=inc) // inc for f in range(3)]),
+        "n_active": red[P_ACTIVE], "n_eject": red[P_EJECT], "eject_eff": red[P_EJECT_EFF],
+        "exit_max": red[P_EXIT_MAX],
+    }
 
 
 def _justification(do_just: bool, total, prev_tb, cur_tb, bits, prev_jcp_ep: int,
@@ -281,32 +361,60 @@ def _justification(do_just: bool, total, prev_tb, cur_tb, bits, prev_jcp_ep: int
     return new_bits, cond_prev, cond_cur, fin_sel, f_new
 
 
-def _registry_updates(C: EpochConsts, cur_ep: int, f_new, effective, activation,
-                      exit_ep, withdrawable, eligibility, active_cur):
-    """Eligibility flags, the vectorised exit queue and the churn-limited
-    activation queue (process_registry_updates, before electra)."""
-    elig_new = torch.where(
-        (eligibility == FAR) & (effective == C.max_effective_balance), cur_ep + 1, eligibility
-    )
-    churn = (active_cur.sum() // C.churn_limit_quotient).clamp(min=C.min_per_epoch_churn_limit)
-    # -- ejections: exact initiate_validator_exit queue semantics ----------
-    eject = active_cur & (effective <= C.ejection_balance) & (exit_ep == FAR)
-    min_exit = cur_ep + 1 + C.max_seed_lookahead
-    eq0 = torch.where(exit_ep != FAR, exit_ep, 0).max().clamp(min=min_exit)
-    c_eff = torch.minimum((exit_ep == eq0).sum(), churn)
-    rank = torch.cumsum(eject, 0) - 1  # valid where eject
+# -- registry updates -------------------------------------------------------
+
+
+def _churn_and_eq0(C: EpochConsts, cur_ep: int, g):
+    """The churn limit and the exit queue's first epoch (before electra)."""
+    churn = (g["n_active"] // C.churn_limit_quotient).clamp(min=C.min_per_epoch_churn_limit)
+    eq0 = g["exit_max"].clamp(min=cur_ep + 1 + C.max_seed_lookahead)
+    return churn, eq0
+
+
+def _exit_queue(C: EpochConsts, eject, rank, eq0, c_eff, churn, exit_ep, withdrawable):
+    """The exact initiate_validator_exit queue in closed form: the rank-th
+    ejection (registry order) exits at ``eq0 + (c_eff + rank) // churn``."""
     assigned = eq0 + (c_eff + rank) // churn
     exit_new = torch.where(eject, assigned, exit_ep)
     wd_new = torch.where(eject, assigned + C.min_validator_withdrawability_delay, withdrawable)
-    # -- activation queue: FIFO by (eligibility epoch, index) --------------
-    cand = (elig_new <= f_new) & (activation == FAR)
-    limit = churn
-    if C.cap_activation_churn:
-        limit = limit.clamp(max=C.max_per_epoch_activation_churn_limit)
-    order = torch.sort(torch.where(cand, elig_new, FAR), stable=True).indices
+    return exit_new, wd_new
+
+
+def _eligibility(C: EpochConsts, cur_ep: int, effective, eligibility):
+    if C.family == "electra":
+        ready = effective >= C.min_activation_balance
+    else:
+        ready = effective == C.max_effective_balance
+    return torch.where((eligibility == FAR) & ready, cur_ep + 1, eligibility)
+
+
+def _activation_limit(C: EpochConsts, churn):
+    return churn.clamp(max=C.max_per_epoch_activation_churn_limit) if C.cap_activation_churn \
+        else churn
+
+
+def activation_taken(key, cand, limit):
+    """FIFO by (eligibility epoch, index) over the whole registry: a stable
+    sort of ``key`` (eligibility where a candidate, else FAR) and the first
+    ``limit`` candidates taken."""
+    order = torch.sort(key, stable=True).indices
     pos = torch.arange(order.shape[0], device=order.device)
-    taken = torch.zeros_like(cand).scatter_(0, order, (pos < limit) & cand[order])
-    act_new = torch.where(taken, min_exit, activation)
+    return torch.zeros_like(cand).scatter_(0, order, (pos < limit) & cand[order])
+
+
+def _registry_updates(C: EpochConsts, cur_ep: int, cols, m, g):
+    """Eligibility flags, the vectorised exit queue and the churn-limited
+    activation queue (process_registry_updates, before electra)."""
+    eff, act, ext = cols["effective"], cols["activation"], cols["exit"]
+    elig_new = _eligibility(C, cur_ep, eff, cols["eligibility"])
+    churn, eq0 = _churn_and_eq0(C, cur_ep, g)
+    c_eff = torch.minimum((ext == eq0).sum(), churn)
+    rank = torch.cumsum(m["eject"], 0) - 1  # valid where eject
+    exit_new, wd_new = _exit_queue(C, m["eject"], rank, eq0, c_eff, churn, ext,
+                                   cols["withdrawable"])
+    cand = (elig_new <= g["f_new"]) & (act == FAR)
+    taken = activation_taken(torch.where(cand, elig_new, FAR), cand, _activation_limit(C, churn))
+    act_new = torch.where(taken, cur_ep + 1 + C.max_seed_lookahead, act)
     return elig_new, exit_new, wd_new, act_new
 
 
@@ -337,44 +445,20 @@ def _effective_updates(C: EpochConsts, balances, effective, max_eff=None):
     return torch.where(need, capped, effective)
 
 
-def _flag_mask(part, flag: int, active_mask, slashed):
-    return active_mask & ((part & (1 << flag)) != 0) & ~slashed
+# -- the per-validator delta stages -----------------------------------------
 
 
-def _altair_head(C: EpochConsts, cols, scalars):
-    """The fork-independent front of the altair-family sweep: justification,
-    inactivity updates, and rewards/penalties."""
-    effective = cols["effective"]
-    slashed = cols["slashed"]
-    activation = cols["activation"]
-    exit_ep = cols["exit"]
-    withdrawable = cols["withdrawable"]
-    balances = cols["balances"]
-    inact = cols["inactivity"]
-    prev_part = cols["prev_part"]
-    cur_part = cols["cur_part"]
+def _altair_deltas(C: EpochConsts, cols, scalars, m, g):
+    """Inactivity updates (reading the just-updated finalized epoch) and
+    rewards/penalties of the altair family -> (balances, inactivity)."""
+    effective, slashed = cols["effective"], cols["slashed"]
+    balances, inact = cols["balances"], cols["inactivity"]
     cur_ep = scalars["cur_epoch"]
-
     inc = C.effective_balance_increment
     prev_ep = max(cur_ep - 1, 0)
-    active_cur = (activation <= cur_ep) & (cur_ep < exit_ep)
-    active_prev = (activation <= prev_ep) & (prev_ep < exit_ep)
-    total = _sum_where(active_cur, effective).clamp(min=inc)
-
-    # --- justification & finalization ------------------------------------
-    prev_tgt = _flag_mask(prev_part, TIMELY_TARGET_FLAG_INDEX, active_prev, slashed)
-    cur_tgt = _flag_mask(cur_part, TIMELY_TARGET_FLAG_INDEX, active_cur, slashed)
-    prev_tb = _sum_where(prev_tgt, effective).clamp(min=inc)
-    cur_tb = _sum_where(cur_tgt, effective).clamp(min=inc)
-    do_just = cur_ep > 1
-    new_bits, cj_prev, cj_cur, fin_sel, f_new = _justification(
-        do_just, total, prev_tb, cur_tb, scalars["bits"], scalars["prev_justified_epoch"],
-        scalars["cur_justified_epoch"], scalars["finalized_epoch"], cur_ep,
-    )
-
-    # --- inactivity updates (reads the just-updated finalized epoch) -----
+    prev_tgt, total, f_new = m["prev_tgt"], g["total"], g["f_new"]
     do_rp = cur_ep > 0
-    eligible = active_prev | (slashed & (prev_ep + 1 < withdrawable))
+    eligible = m["active_prev"] | (slashed & (prev_ep + 1 < cols["withdrawable"]))
     is_leak = (prev_ep - f_new) > C.min_epochs_to_inactivity_penalty
     s1 = torch.where(eligible & prev_tgt, inact - inact.clamp(max=1), inact)
     s1 = torch.where(eligible & ~prev_tgt, s1 + C.inactivity_score_bias, s1)
@@ -383,16 +467,14 @@ def _altair_head(C: EpochConsts, cols, scalars):
     )
     inact_new = s2 if do_rp else inact
 
-    # --- rewards & penalties ---------------------------------------------
     total_increments = total // inc
     per_inc = inc * C.base_reward_factor // _isqrt(total)
     base = (effective // inc) * per_inc
     rewards = torch.zeros_like(balances)
     penalties = torch.zeros_like(balances)
     for flag_index, weight in enumerate(PARTICIPATION_FLAG_WEIGHTS):
-        mask = _flag_mask(prev_part, flag_index, active_prev, slashed)
-        flag_increments = _sum_where(mask, effective).clamp(min=inc) // inc
-        numer = base * (weight * flag_increments)
+        mask = m["flags"][flag_index]
+        numer = base * (weight * g["flag_inc"][flag_index])
         denom = total_increments * WEIGHT_DENOMINATOR
         rewards = torch.where(eligible & mask & ~is_leak, rewards + numer // denom, rewards)
         if flag_index != TIMELY_HEAD_FLAG_INDEX:
@@ -407,73 +489,34 @@ def _altair_head(C: EpochConsts, cols, scalars):
     if do_rp:
         bal = balances + rewards
         bal = bal - torch.minimum(penalties, bal)
-
-    return {
-        "bal": bal, "inact_new": inact_new, "bits": new_bits, "cj_prev": cj_prev,
-        "cj_cur": cj_cur, "fin_sel": fin_sel, "f_new": f_new, "do_just": do_just,
-        "active_cur": active_cur, "total": total,
-    }
+    return bal, inact_new
 
 
-def _sweep_altair(C: EpochConsts, cols, scalars):
+def _phase0_base(C: EpochConsts, cols, g):
+    return cols["effective"] * C.base_reward_factor // _isqrt(g["total"]) // BASE_REWARDS_PER_EPOCH
+
+
+def _phase0_proposer_rewards(C: EpochConsts, cols, base):
+    """Each included attester's proposer micro-reward, to be added at its
+    ``incl_proposer`` row (an index anywhere in the registry)."""
+    ok = cols["has_incl"] & ~cols["slashed"]
+    return torch.where(ok, base // C.proposer_reward_quotient, 0)
+
+
+def _phase0_deltas(C: EpochConsts, cols, scalars, m, g, base, proposer):
+    """Rewards and penalties before altair -> balances; ``proposer`` holds
+    the proposer micro-rewards landing on each row."""
+    effective, slashed, balances = cols["effective"], cols["slashed"], cols["balances"]
     cur_ep = scalars["cur_epoch"]
-    h = _altair_head(C, cols, scalars)
-    elig_new, exit_new, wd_new, act_new = _registry_updates(
-        C, cur_ep, h["f_new"], cols["effective"], cols["activation"], cols["exit"],
-        cols["withdrawable"], cols["eligibility"], h["active_cur"],
-    )
-    bal = _slashings(C, cur_ep, h["total"], scalars["slash_sum"], cols["effective"],
-                     cols["slashed"], cols["withdrawable"], h["bal"])
-    return {
-        "balances": bal,
-        "inactivity": h["inact_new"],
-        "effective": _effective_updates(C, bal, cols["effective"]),
-        "activation": act_new,
-        "exit": exit_new,
-        "withdrawable": wd_new,
-        "eligibility": elig_new,
-        **{k: h[k] for k in ("bits", "cj_prev", "cj_cur", "fin_sel", "f_new", "do_just")},
-    }
-
-
-def _sweep_phase0(C: EpochConsts, cols, scalars):
-    effective = cols["effective"]
-    slashed = cols["slashed"]
-    activation = cols["activation"]
-    exit_ep = cols["exit"]
-    withdrawable = cols["withdrawable"]
-    balances = cols["balances"]
-    src_mask = cols["src_mask"]
-    tgt_mask = cols["tgt_mask"]
-    head_mask = cols["head_mask"]
-    cur_ep = scalars["cur_epoch"]
-
-    inc = C.effective_balance_increment
     prev_ep = max(cur_ep - 1, 0)
-    active_cur = (activation <= cur_ep) & (cur_ep < exit_ep)
-    active_prev = (activation <= prev_ep) & (prev_ep < exit_ep)
-    total = _sum_where(active_cur, effective).clamp(min=inc)
-
-    # --- justification (target masks are host-gathered, unslashed) -------
-    prev_tb = _sum_where(tgt_mask, effective).clamp(min=inc)
-    cur_tb = _sum_where(cols["cur_tgt_mask"], effective).clamp(min=inc)
-    do_just = cur_ep > 1
-    new_bits, cj_prev, cj_cur, fin_sel, f_new = _justification(
-        do_just, total, prev_tb, cur_tb, scalars["bits"], scalars["prev_justified_epoch"],
-        scalars["cur_justified_epoch"], scalars["finalized_epoch"], cur_ep,
-    )
-
-    # --- rewards & penalties ---------------------------------------------
     do_rp = cur_ep > 0
-    eligible = active_prev | (slashed & (prev_ep + 1 < withdrawable))
-    delay = prev_ep - f_new
+    eligible = m["active_prev"] | (slashed & (prev_ep + 1 < cols["withdrawable"]))
+    delay = prev_ep - g["f_new"]
     is_leak = delay > C.min_epochs_to_inactivity_penalty
-    base = effective * C.base_reward_factor // _isqrt(total) // BASE_REWARDS_PER_EPOCH
-    total_increments = total // inc
+    total_increments = g["total"] // C.effective_balance_increment
     rewards = torch.zeros_like(balances)
     penalties = torch.zeros_like(balances)
-    for mask in (src_mask, tgt_mask, head_mask):
-        increments = _sum_where(mask, effective).clamp(min=inc) // inc
+    for mask, increments in zip(m["flags"], g["flag_inc"]):
         rewards = torch.where(
             eligible & mask,
             rewards + torch.where(is_leak, base, base * increments // total_increments),
@@ -485,7 +528,7 @@ def _sweep_phase0(C: EpochConsts, cols, scalars):
     # resolved into per-validator delay/proposer columns)
     ok = cols["has_incl"] & ~slashed
     proposer_reward = base // C.proposer_reward_quotient
-    rewards = rewards.index_add(0, cols["incl_proposer"], torch.where(ok, proposer_reward, 0))
+    rewards = rewards + proposer
     safe_delay = torch.where(ok, cols["incl_delay"], 1)
     rewards = torch.where(ok, rewards + (base - proposer_reward) // safe_delay, rewards)
 
@@ -493,7 +536,7 @@ def _sweep_phase0(C: EpochConsts, cols, scalars):
     leak_pen = BASE_REWARDS_PER_EPOCH * base - base // C.proposer_reward_quotient
     penalties = torch.where(eligible & is_leak, penalties + leak_pen, penalties)
     penalties = torch.where(
-        eligible & ~tgt_mask & is_leak,
+        eligible & ~m["prev_tgt"] & is_leak,
         penalties + effective * delay // C.inactivity_penalty_quotient,
         penalties,
     )
@@ -501,27 +544,51 @@ def _sweep_phase0(C: EpochConsts, cols, scalars):
     if do_rp:
         bal = balances + rewards
         bal = bal - torch.minimum(penalties, bal)
+    return bal
 
-    # --- registry updates / slashings / effective balances ---------------
-    elig_new, exit_new, wd_new, act_new = _registry_updates(
-        C, cur_ep, f_new, effective, activation, exit_ep, withdrawable,
-        cols["eligibility"], active_cur,
-    )
-    bal = _slashings(C, cur_ep, total, scalars["slash_sum"], effective, slashed,
-                     withdrawable, bal)
+
+_FLAG_KEYS = ("bits", "cj_prev", "cj_cur", "fin_sel", "f_new", "do_just")
+
+
+def _sweep_altair(C: EpochConsts, cols, scalars):
+    cur_ep = scalars["cur_epoch"]
+    m, red = _partials(C, cols, cur_ep)
+    g = _globals(C, red, scalars)
+    bal, inact_new = _altair_deltas(C, cols, scalars, m, g)
+    elig_new, exit_new, wd_new, act_new = _registry_updates(C, cur_ep, cols, m, g)
+    bal = _slashings(C, cur_ep, g["total"], scalars["slash_sum"], cols["effective"],
+                     cols["slashed"], cols["withdrawable"], bal)
     return {
         "balances": bal,
-        "effective": _effective_updates(C, bal, effective),
+        "inactivity": inact_new,
+        "effective": _effective_updates(C, bal, cols["effective"]),
         "activation": act_new,
         "exit": exit_new,
         "withdrawable": wd_new,
         "eligibility": elig_new,
-        "bits": new_bits,
-        "cj_prev": cj_prev,
-        "cj_cur": cj_cur,
-        "fin_sel": fin_sel,
-        "f_new": f_new,
-        "do_just": do_just,
+        **{k: g[k] for k in _FLAG_KEYS},
+    }
+
+
+def _sweep_phase0(C: EpochConsts, cols, scalars):
+    cur_ep = scalars["cur_epoch"]
+    m, red = _partials(C, cols, cur_ep)
+    g = _globals(C, red, scalars)
+    base = _phase0_base(C, cols, g)
+    proposer = torch.zeros_like(cols["balances"]).index_add(
+        0, cols["incl_proposer"], _phase0_proposer_rewards(C, cols, base))
+    bal = _phase0_deltas(C, cols, scalars, m, g, base, proposer)
+    elig_new, exit_new, wd_new, act_new = _registry_updates(C, cur_ep, cols, m, g)
+    bal = _slashings(C, cur_ep, g["total"], scalars["slash_sum"], cols["effective"],
+                     cols["slashed"], cols["withdrawable"], bal)
+    return {
+        "balances": bal,
+        "effective": _effective_updates(C, bal, cols["effective"]),
+        "activation": act_new,
+        "exit": exit_new,
+        "withdrawable": wd_new,
+        "eligibility": elig_new,
+        **{k: g[k] for k in _FLAG_KEYS},
     }
 
 
@@ -538,52 +605,63 @@ def _balance_churn_limits(C: EpochConsts, total):
     return churn, churn.clamp(max=C.max_per_epoch_activation_exit_churn_limit)
 
 
-def _registry_updates_electra(C: EpochConsts, cur_ep: int, f_new, effective, activation,
-                              exit_ep, withdrawable, eligibility, active_cur,
-                              earliest_exit_in: int, exit_btc_in: int, churn_aexit):
+def _electra_exit_start(C: EpochConsts, cur_ep: int, scalars, churn_aexit):
+    """``E0 = max(earliest_exit, cur+1+lookahead)`` and the epoch's starting
+    exit budget ``btc0``."""
+    e0 = max(scalars["earliest_exit_epoch"], cur_ep + 1 + C.max_seed_lookahead)
+    btc0 = churn_aexit if scalars["earliest_exit_epoch"] < e0 else scalars["exit_balance_to_consume"]
+    return e0, btc0
+
+
+def _electra_exits(csum, e0: int, btc0, churn_aexit):
+    """The exit epoch of the ejection whose inclusive balance cumsum (index
+    order) is ``csum``: ``E0 + ceil((csum - btc0) / churn)``."""
+    return e0 + torch.where(csum > btc0, (csum - btc0 - 1) // churn_aexit + 1, 0)
+
+
+def _registry_updates_electra(C: EpochConsts, cur_ep: int, cols, m, g, csum, e0: int, btc0,
+                              churn_aexit):
     """Electra process_registry_updates: MIN_ACTIVATION_BALANCE eligibility,
-    balance-churned ejections in closed form, and limit-free activations.
-    With ``E0 = max(earliest_exit, cur+1+lookahead)`` and ``btc0`` the
-    epoch's starting exit budget, the k-th ejection (index order, inclusive
-    balance cumsum ``C_k``) lands on ``E0 + ceil((C_k - btc0) / churn)``."""
-    elig_new = torch.where(
-        (eligibility == FAR) & (effective >= C.min_activation_balance), cur_ep + 1, eligibility
-    )
-    eject = active_cur & (effective <= C.ejection_balance) & (exit_ep == FAR)
-    min_exit = cur_ep + 1 + C.max_seed_lookahead
-    e0 = max(earliest_exit_in, min_exit)
-    btc0 = churn_aexit if earliest_exit_in < e0 else exit_btc_in
-    csum = torch.cumsum(torch.where(eject, effective, 0), 0)
-    add = torch.where(csum > btc0, (csum - btc0 - 1) // churn_aexit + 1, 0)
-    assigned = e0 + add
-    exit_new = torch.where(eject, assigned, exit_ep)
-    wd_new = torch.where(eject, assigned + C.min_validator_withdrawability_delay, withdrawable)
+    balance-churned ejections in closed form (``csum`` the ejections'
+    inclusive balance cumsum), and limit-free activations."""
+    act = cols["activation"]
+    elig_new = _eligibility(C, cur_ep, cols["effective"], cols["eligibility"])
+    assigned = _electra_exits(csum, e0, btc0, churn_aexit)
+    exit_new = torch.where(m["eject"], assigned, cols["exit"])
+    wd_new = torch.where(m["eject"], assigned + C.min_validator_withdrawability_delay,
+                         cols["withdrawable"])
     # activations: every finalized-eligible candidate activates (EIP-7251
     # throttles via the pending-deposit balance churn, not a queue limit)
-    cand = (elig_new <= f_new) & (activation == FAR)
-    act_new = torch.where(cand, min_exit, activation)
-    return (elig_new, exit_new, wd_new, act_new, eject.any(), e0 + add[-1],
-            btc0 + add[-1] * churn_aexit - csum[-1])
+    cand = (elig_new <= g["f_new"]) & (act == FAR)
+    act_new = torch.where(cand, cur_ep + 1 + C.max_seed_lookahead, act)
+    return elig_new, exit_new, wd_new, act_new
 
 
-def _deposits_stage(C: EpochConsts, next_ep: int, f_new, exit_new, wd_new, balances,
-                    dep_amount, dep_slot, dep_index, dep_valid, dbtc_in: int, churn_aexit,
-                    bridge_wait: bool):
+def _electra_exit_carries(g, e0: int, btc0, churn_aexit):
+    """(has_ejection, earliest_exit, exit_btc) from the registry's total
+    ejected balance (the last entry of the inclusive cumsum)."""
+    earliest = _electra_exits(g["eject_eff"], e0, btc0, churn_aexit)
+    return g["n_eject"] > 0, earliest, btc0 + (earliest - e0) * churn_aexit - g["eject_eff"]
+
+
+def deposit_plan(C: EpochConsts, next_ep: int, f_new, exit_at, wd_at, dep_amount, dep_slot,
+                 dep_index, dep_valid, dbtc_in: int, churn_aexit, bridge_wait: bool):
     """process_pending_deposits as a masked cumulative sum over the first
-    MAX_PENDING_DEPOSITS_PER_EPOCH queue entries. The loop's three break
-    conditions become stop positions (first gate failure, first churn
-    overflow among budget-consuming entries, queue end); the realised stop
-    is their minimum. Known-index deposits are added into balances here;
-    unknown-pubkey ones are flagged for the host."""
+    MAX_PENDING_DEPOSITS_PER_EPOCH queue entries, given each known
+    deposit's post-registry exit and withdrawable epochs (``exit_at``,
+    ``wd_at``). The loop's three break conditions become stop positions
+    (first gate failure, first churn overflow among budget-consuming
+    entries, queue end); the realised stop is their minimum. Returns the
+    amount each entry adds at its validator's row, the stop, the postponed
+    and unknown-pubkey masks (for the host) and the carried budget."""
     maxq = dep_amount.shape[0]
     pos = torch.arange(maxq, device=dep_amount.device)
     gate_fail = dep_valid & (((dep_slot > 0) & bridge_wait)
                              | (dep_slot > f_new * C.slots_per_epoch))
     s_gate = torch.where(gate_fail, pos, maxq).min()
     known = dep_index >= 0
-    gi = dep_index.clamp(0, exit_new.shape[0] - 1)
-    withdrawn = dep_valid & known & (wd_new[gi] < next_ep)
-    exited = dep_valid & known & ~withdrawn & (exit_new[gi] < FAR)
+    withdrawn = dep_valid & known & (wd_at < next_ep)
+    exited = dep_valid & known & ~withdrawn & (exit_at < FAR)
     consumes = dep_valid & ~withdrawn & ~exited  # the budget-charged branch
     csum = torch.cumsum(torch.where(consumes, dep_amount, 0), 0)
     available = churn_aexit + dbtc_in
@@ -592,20 +670,20 @@ def _deposits_stage(C: EpochConsts, next_ep: int, f_new, exit_new, wd_new, balan
     s = torch.minimum(s_churn, s_other)
     before = pos < s
     processed = _sum_where(consumes & before, dep_amount)
-    apply_dev = before & known & (withdrawn | consumes)
-    bal = balances.index_add(0, gi, torch.where(apply_dev, dep_amount, 0))
+    add = torch.where(before & known & (withdrawn | consumes), dep_amount, 0)
     dbtc_out = torch.where(s_churn < s_other, available - processed, 0)
-    return bal, s, before & exited, before & dep_valid & ~known, dbtc_out
+    return add, s, before & exited, before & dep_valid & ~known, dbtc_out
 
 
-def _consolidations(next_ep: int, slashed, effective, wd_new, balances, con_src, con_tgt,
-                    con_valid):
+def consolidations(next_ep: int, slashed, effective, wd_new, balances, con_src, con_tgt,
+                   con_valid):
     """process_pending_consolidations over the padded queue, in order (the
     reference's ``lax.scan``): duplicate sources and chains move running
     balances, so each step moves ``min(balance, effective)`` source ->
     target against the carried plane. Slashed sources are skipped but
     consumed; the first live source still inside its withdrawability delay
-    stops the sweep."""
+    stops the sweep. The planes may be the whole registry or any gathered
+    subset the indices address."""
     bal = balances.clone()
     stopped = torch.zeros(1, dtype=torch.bool, device=bal.device)
     consumed = torch.zeros(1, dtype=torch.int64, device=bal.device)
@@ -621,59 +699,59 @@ def _consolidations(next_ep: int, slashed, effective, wd_new, balances, con_src,
     return bal, consumed[0]
 
 
-def _sweep_electra(C: EpochConsts, cols, scalars):
+def electra_certs(C: EpochConsts, n_pad: int, dep_width: int) -> None:
     from ..ops.bls.fq import _cert
 
-    effective = cols["effective"]
-    slashed = cols["slashed"]
-    withdrawable = cols["withdrawable"]
-    cur_ep = scalars["cur_epoch"]
-    n_pad = effective.shape[0]
     assert _cert(
         "epoch_validator_index_domain", n_pad, 2**31 - 1,
         "validator-axis gather/scatter indices fit int32",
     )
     assert _cert(
         "epoch_deposit_plane_width", C.max_pending_deposits_per_epoch,
-        cols["dep_amount"].shape[0], "deposit sweep never reads past the fixed queue plane",
+        dep_width, "deposit sweep never reads past the fixed queue plane",
     )
 
-    h = _altair_head(C, cols, scalars)
-    bal, f_new, total = h["bal"], h["f_new"], h["total"]
+
+def _sweep_electra(C: EpochConsts, cols, scalars):
+    effective = cols["effective"]
+    cur_ep = scalars["cur_epoch"]
+    electra_certs(C, effective.shape[0], cols["dep_amount"].shape[0])
+
+    m, red = _partials(C, cols, cur_ep)
+    g = _globals(C, red, scalars)
+    bal, inact_new = _altair_deltas(C, cols, scalars, m, g)
     next_ep = cur_ep + 1
-    _, churn_aexit = _balance_churn_limits(C, total)
-    (elig_new, exit_new, wd_new, act_new, has_ejection, earliest_out,
-     exit_btc_out) = _registry_updates_electra(
-        C, cur_ep, f_new, effective, cols["activation"], cols["exit"], withdrawable,
-        cols["eligibility"], h["active_cur"], scalars["earliest_exit_epoch"],
-        scalars["exit_balance_to_consume"], churn_aexit,
-    )
-    bal = _slashings(C, cur_ep, total, scalars["slash_sum"], effective, slashed,
-                     withdrawable, bal)
+    _, churn_aexit = _balance_churn_limits(C, g["total"])
+    e0, btc0 = _electra_exit_start(C, cur_ep, scalars, churn_aexit)
+    csum = torch.cumsum(torch.where(m["eject"], effective, 0), 0)
+    elig_new, exit_new, wd_new, act_new = _registry_updates_electra(
+        C, cur_ep, cols, m, g, csum, e0, btc0, churn_aexit)
+    bal = _slashings(C, cur_ep, g["total"], scalars["slash_sum"], effective, cols["slashed"],
+                     cols["withdrawable"], bal)
     # deposit/consolidation classification reads the POST-registry exit and
     # withdrawable planes — the numpy twin's loops run after the updates
-    bal, dep_stop, dep_postponed, dep_host, dbtc_out = _deposits_stage(
-        C, next_ep, f_new, exit_new, wd_new, bal, cols["dep_amount"], cols["dep_slot"],
+    gi = cols["dep_index"].clamp(0, effective.shape[0] - 1)
+    add, dep_stop, dep_postponed, dep_host, dbtc_out = deposit_plan(
+        C, next_ep, g["f_new"], exit_new[gi], wd_new[gi], cols["dep_amount"], cols["dep_slot"],
         cols["dep_index"], cols["dep_valid"], scalars["deposit_balance_to_consume"],
         churn_aexit,
         scalars["eth1_deposit_index"] < scalars["deposit_requests_start_index"],
     )
-    bal, cons_consumed = _consolidations(
-        next_ep, slashed, effective, wd_new, bal, cols["con_src"], cols["con_tgt"],
+    bal = bal.index_add(0, gi, add)
+    bal, cons_consumed = consolidations(
+        next_ep, cols["slashed"], effective, wd_new, bal, cols["con_src"], cols["con_tgt"],
         cols["con_valid"],
     )
-    max_eff = torch.where(
-        cols["compounding"], C.max_effective_balance_electra, C.min_activation_balance
-    )
+    has_ejection, earliest_out, exit_btc_out = _electra_exit_carries(g, e0, btc0, churn_aexit)
     return {
         "balances": bal,
-        "inactivity": h["inact_new"],
-        "effective": _effective_updates(C, bal, effective, max_eff=max_eff),
+        "inactivity": inact_new,
+        "effective": _effective_updates(C, bal, effective, max_eff=max_effective(C, cols)),
         "activation": act_new,
         "exit": exit_new,
         "withdrawable": wd_new,
         "eligibility": elig_new,
-        **{k: h[k] for k in ("bits", "cj_prev", "cj_cur", "fin_sel", "f_new", "do_just")},
+        **{k: g[k] for k in _FLAG_KEYS},
         "dep_stop": dep_stop,
         "dep_postponed": dep_postponed,
         "dep_host": dep_host,
@@ -683,6 +761,13 @@ def _sweep_electra(C: EpochConsts, cols, scalars):
         "earliest_exit": earliest_out,
         "exit_btc": exit_btc_out,
     }
+
+
+def max_effective(C: EpochConsts, cols):
+    """The per-validator max_effective_balance plane (EIP-7251)."""
+    return torch.where(
+        cols["compounding"], C.max_effective_balance_electra, C.min_activation_balance
+    )
 
 
 _SWEEPS = {"phase0": _sweep_phase0, "altair": _sweep_altair, "electra": _sweep_electra}

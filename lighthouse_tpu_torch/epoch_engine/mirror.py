@@ -16,6 +16,11 @@ trip, and diffing the sweep's outputs so the write-back touches only the
 Python validator objects that changed. Balances, inactivity and
 participation live as numpy arrays on the state and are uploaded whole each
 epoch; the mirror counts every host<->device byte.
+
+Over a serving mesh (``mesh=``, the reference's ``sharding=``) every
+per-validator column is a list of row blocks, block ``s`` on ``mesh[s]``
+(``epoch_engine/sharded.py`` sweeps them); the queue columns stay on
+``mesh[0]``.
 """
 
 from __future__ import annotations
@@ -76,6 +81,13 @@ def _field_value(v, name):
     return getattr(v, _FIELD_ATTRS[name])
 
 
+def _nbytes(t) -> int:
+    """Bytes of a column, one tensor or a list of row blocks."""
+    if isinstance(t, (list, tuple)):
+        return sum(x.numel() * x.element_size() for x in t)
+    return t.numel() * t.element_size()
+
+
 @dataclass
 class MirrorStats:
     full_syncs: int = 0
@@ -93,10 +105,11 @@ class MirrorStats:
 
 class RegistryMirror:
     """Columnar registry mirror bound to one state object's lifetime and one
-    device."""
+    device, or a mesh of them (the columns in row blocks)."""
 
-    def __init__(self, device: torch.device):
-        self.device = device
+    def __init__(self, device: torch.device, mesh=None):
+        self.mesh = None if mesh is None else list(mesh)
+        self.device = device if self.mesh is None else self.mesh[0]
         self.n = 0
         self.n_pad = 0
         self.cols: dict[str, torch.Tensor] = {}  # name -> device tensor (padded)
@@ -107,22 +120,30 @@ class RegistryMirror:
 
     # -- host<->device helpers -------------------------------------------
 
-    def put(self, arr: np.ndarray, epochs: bool = False) -> torch.Tensor:
+    def put(self, arr: np.ndarray, epochs: bool = False, device=None) -> torch.Tensor:
         """Upload a host column (``kernels.to_device``), counting its bytes."""
-        t = to_device(arr, self.device, epochs=epochs)
+        t = to_device(arr, self.device if device is None else device, epochs=epochs)
         nbytes = t.numel() * t.element_size()
         self.stats.host_to_device_bytes += nbytes
         self.stats.last_host_to_device_bytes += nbytes
         return t
 
-    def pad_and_put(self, arr: np.ndarray, fill=0) -> torch.Tensor:
+    def put_rows(self, arr: np.ndarray, epochs: bool = False):
+        """Upload a padded per-validator column: one tensor, or over a mesh
+        its row blocks, block s on ``mesh[s]``."""
+        if self.mesh is None:
+            return self.put(arr, epochs)
+        b = arr.shape[0] // len(self.mesh)
+        return [self.put(arr[s * b:(s + 1) * b], epochs, dev) for s, dev in enumerate(self.mesh)]
+
+    def pad_and_put(self, arr: np.ndarray, fill=0):
         """Pad a per-validator host array to the shape bucket and upload
         (the per-epoch balances/participation/inactivity path)."""
         if arr.shape[0] != self.n_pad:
             padded = np.full(self.n_pad, fill, dtype=arr.dtype)
             padded[: arr.shape[0]] = arr
             arr = padded
-        return self.put(arr)
+        return self.put_rows(arr)
 
     def pubkey_map(self, state) -> dict[bytes, int]:
         """Lazy pubkey -> validator-index map over this mirror's state
@@ -170,7 +191,7 @@ class RegistryMirror:
             col = np.full(self.n_pad, _PAD_VALUES[name], dtype=dt)
             col[:n] = [_field_value(v, name) for v in vs]
             self.shadow[name] = col
-            self.cols[name] = self.put(col, epochs=name in EPOCH_COLUMNS)
+            self.cols[name] = self.put_rows(col, epochs=name in EPOCH_COLUMNS)
         j = journal_of(state)
         if j is None:
             install_journal(state, n)
@@ -185,26 +206,30 @@ class RegistryMirror:
             col = np.full(new_pad, _PAD_VALUES[name], dtype=dt)
             col[: self.n_pad] = self.shadow[name]
             self.shadow[name] = col
-            self.cols[name] = self.put(col, epochs=name in EPOCH_COLUMNS)
+            self.cols[name] = self.put_rows(col, epochs=name in EPOCH_COLUMNS)
         self.n_pad = new_pad
         self._set_resident_gauge()
 
     def _set_resident_gauge(self) -> None:
         from ..utils import metrics
 
-        metrics.EPOCH_MIRROR_BYTES.set(
-            sum(t.numel() * t.element_size() for t in self.cols.values())
-        )
+        metrics.EPOCH_MIRROR_BYTES.set(sum(_nbytes(t) for t in self.cols.values()))
 
     def _apply_rows(self, vs, rows: list[int]) -> None:
         idx = np.asarray(rows, dtype=np.int64)
-        idx_t = self.put(idx)
         for name, dt in _REG_DTYPES.items():
             vals = np.asarray([_field_value(vs[i], name) for i in rows], dtype=dt)
             self.shadow[name][idx] = vals
-            self.cols[name].index_put_(
-                (idx_t,), self.put(vals, epochs=name in EPOCH_COLUMNS)
-            )
+        b = self.n_pad if self.mesh is None else self.n_pad // len(self.mesh)
+        for s, dev in enumerate(self.mesh or [self.device]):
+            sel = idx[(idx >= s * b) & (idx < (s + 1) * b)]
+            if not sel.size:
+                continue
+            loc = self.put(sel - s * b, device=dev)
+            for name in _REG_DTYPES:
+                col = self.cols[name] if self.mesh is None else self.cols[name][s]
+                col.index_put_((loc,), self.put(self.shadow[name][sel],
+                                                epochs=name in EPOCH_COLUMNS, device=dev))
 
     # -- post-sweep write-back --------------------------------------------
 
@@ -219,7 +244,7 @@ class RegistryMirror:
                 continue
             new_dev = outs[name]
             new_host = from_device(new_dev, epochs=name in EPOCH_COLUMNS)
-            self.stats.device_to_host_bytes += new_dev.numel() * new_dev.element_size()
+            self.stats.device_to_host_bytes += _nbytes(new_dev)
             old = self.shadow[name]
             changed = np.nonzero(new_host[:n] != old[:n])[0]
             if changed.size:

@@ -16,14 +16,19 @@ device backend (``bls.backend.verify_indexed_sets_device``):
     split and retried to isolate the poisoned set(s) in O(bad * log n)
     batched calls instead of n per-set calls.
 
+  * **sharded serving tier** (``sharding.py``) — N fixed-shape sub-batches
+    per tick data-parallel over the device mesh with per-shard verdicts and
+    per-shard fault domains (mesh -> N/2 -> single device ladder), behind
+    ``bls.set_backend(mesh_devices=)`` (``bls/mesh.py``).
+
 The attester/shuffling cache tier (``attester_cache.py``) resolves gossip
-committees for the chain. Not ported yet: the sharded serving tier
-(``sharding.py``, multi-GPU).
+committees for the chain.
 """
 
 from .batcher import AdaptiveBatcher, FirehoseConfig, FirehoseItem
 from .bisect import bisect_verify
 from .engine import FirehoseEngine, FirehoseStats
+from .sharding import MeshShrunk, MeshVerifier, ShardPlan, plan_shards
 
 __all__ = [
     "AdaptiveBatcher",
@@ -31,5 +36,9 @@ __all__ = [
     "FirehoseEngine",
     "FirehoseItem",
     "FirehoseStats",
+    "MeshShrunk",
+    "MeshVerifier",
+    "ShardPlan",
     "bisect_verify",
+    "plan_shards",
 ]

@@ -114,14 +114,13 @@ class FirehoseEngine:
         # with watchdog + classified retries instead of failing the batch
         self.supervisor = supervisor
         self.fallback_verify_fn = fallback_verify_fn
-        # optional sharded serving tier (the reference's
-        # firehose/sharding.MeshVerifier; the port has none yet):
-        # the prep thread stages per-shard sub-batches + H2D transfers for
-        # batch N+1 while the device thread runs batch N over the mesh, and
-        # verdicts come back per SHARD — a poisoned shard bisects only its
-        # own groups. The planner carries its own fault-domain ladder
-        # (mesh -> shrunken mesh -> single device -> CPU oracle), so it is
-        # never combined with `supervisor` (that would double-wrap)
+        # optional sharded serving tier (sharding.MeshVerifier): the prep
+        # thread stages per-shard sub-batches + H2D transfers for batch N+1
+        # while the device thread runs batch N over the mesh, and verdicts
+        # come back per SHARD — a poisoned shard bisects only its own
+        # groups. The planner carries its own fault-domain ladder (mesh ->
+        # shrunken mesh -> single device [-> CPU oracle]), so it is never
+        # combined with `supervisor` (that would double-wrap)
         self.shard_planner = shard_planner
         self.synchronous = synchronous
         # callback(payload, ok, meta) used when submit() gives none

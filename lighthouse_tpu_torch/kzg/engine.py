@@ -16,8 +16,10 @@ device (see ``ops/kzg/verify`` for the math) behind the backend seam
 * ``host``   — the ``CellContext`` per-cell loop, taken only when selected.
 
 Unlike the reference there is no ``auto`` backend and no environment
-variable, and no branch depends on how many cards are visible (column
-sharding across cards is not ported).
+variable, and no branch depends on how many cards are visible. A batch is
+always one combined check on the engine's device: the reference splits it
+into column-group shards when several devices are visible, but runs every
+shard on the same device, so the split adds checks and uses no second card.
 
 The device path runs under the ``kzg_device`` fault domain (stage
 ``kzg.cell_batch_verify``): ``device_full`` -> ``device_reduced`` (split

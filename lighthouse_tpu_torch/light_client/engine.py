@@ -17,8 +17,9 @@ for the math) behind the backend seam ``set_lc_backend``:
 
 Unlike the reference there is no ``auto`` backend and no environment
 variable, and no branch depends on how many cards are visible: a batch is
-one dispatch on the engine's device (the reference's split of period groups
-over local devices is not ported).
+one dispatch on the engine's device. The reference splits period groups into
+shards when several devices are visible, but runs every shard on the same
+device, so the split adds checks and uses no second card.
 
 The device path runs under the ``lc_device`` fault domain (stage
 ``lc.batch_verify``): ``device_full`` -> ``device_reduced`` (split halves,

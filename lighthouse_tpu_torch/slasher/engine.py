@@ -32,8 +32,10 @@ store's device):
   ``slasher_surveillance_gap`` metric — loud, never silent.
 
 The reference's ``validator_sharding`` (planes split over a device mesh)
-waits for multi-GPU serving: no branch here depends on the number of
-visible cards.
+is the span store's ``mesh_devices``: an explicit device list (None or one
+entry: off) over which the ``[V, N]`` planes are split into validator row
+blocks, each tick's pairs going to their rows' block. No branch depends on
+the number of visible cards.
 """
 
 from __future__ import annotations
@@ -175,6 +177,7 @@ class SpanStore:
         checkpoint_every: int = 32,
         pair_floor: int = 256,
         validator_floor: int = 256,
+        mesh_devices=None,
     ):
         # the distance encoding stores at most n-1 (saturating at the
         # MAX_DISTANCE sentinel like the reference), so the full reference
@@ -189,8 +192,13 @@ class SpanStore:
         self.use_device = bool(use_device)
         # resolved up front: a missing card raises here, never inside the
         # supervised region where it would pass for a fault and demote
+        from ..bls.mesh import mesh_devices as _mesh_of
+
+        # the planes' row blocks, block s on mesh[s] (None: one device)
+        self.mesh = _mesh_of(mesh_devices) if self.use_device else None
         self.device = (
-            resolve_device(get_device() if device is None else device)
+            (self.mesh[0] if self.mesh else
+             resolve_device(get_device() if device is None else device))
             if self.use_device else None
         )
         self.checkpoint_every = max(1, checkpoint_every)
@@ -260,15 +268,30 @@ class SpanStore:
     def _upload(self) -> None:
         from . import kernels
 
-        if isinstance(self.host, _Fresh):
-            self.dev = kernels.empty_planes(*self.host.shape, self.device)
+        if self.mesh is None:
+            blocks = [(self.device, slice(None))]
         else:
-            self.dev = kernels.planes_to_device(*self.host, self.device)
+            b = self.n_pad // len(self.mesh)
+            blocks = [(d, slice(s * b, (s + 1) * b)) for s, d in enumerate(self.mesh)]
+        if isinstance(self.host, _Fresh):
+            rows = self.host.shape[0] // len(blocks)
+            dev = [kernels.empty_planes(rows, self.n_hist, d) for d, _ in blocks]
+        else:
+            dev = [kernels.planes_to_device(*(a[r] for a in self.host), d) for d, r in blocks]
+        self.dev = dev[0] if self.mesh is None else dev
         from ..utils import metrics
 
         metrics.SLASHER_SPAN_PLANE_BYTES.set(
-            sum(p.numel() * p.element_size() for p in self.dev)
+            sum(p.numel() * p.element_size() for planes in dev for p in planes)
         )
+
+    def _planes_from_device(self) -> tuple:
+        from .kernels import planes_from_device
+
+        if self.mesh is None:
+            return planes_from_device(self.dev)
+        blocks = [planes_from_device(planes) for planes in self.dev]
+        return tuple(np.concatenate(p) for p in zip(*blocks))
 
     def _try_upload(self) -> bool:
         """Upload with the fault recorded instead of raised (regrow /
@@ -287,9 +310,7 @@ class SpanStore:
         """Adopt the device planes as the host checkpoint (device->host
         sync); clears the journal. Raises on a device fault — callers
         demote-and-replay, so a failed checkpoint loses nothing."""
-        from .kernels import planes_from_device
-
-        self.host = list(planes_from_device(self.dev))
+        self.host = list(self._planes_from_device())
         self.ckpt_epoch = self.epoch
         self.journal.clear()
         self.checkpoints += 1
@@ -354,11 +375,29 @@ class SpanStore:
     def _device_thunk(self, pv, ps, pt, ph, pm, delta, cur):
         from .kernels import PlanesIndeterminate, sweep_
 
-        out = sweep_(self.dev, delta, pv, ps, pt, ph, pm, cur, n=self.n_hist)
+        if self.mesh is None:
+            parts = [(np.arange(len(pv)), sweep_(self.dev, delta, pv, ps, pt, ph, pm, cur,
+                                                 n=self.n_hist))]
+        else:
+            # each block sweeps its own rows' pairs (a row's update reads
+            # only that row), and every block advances its window
+            from ..bls.mesh import device_context
+
+            b = self.n_pad // len(self.mesh)
+            parts = []
+            for s, d in enumerate(self.mesh):
+                q = np.nonzero(pm & (pv // b == s))[0]
+                with device_context(d):
+                    parts.append((q, sweep_(self.dev[s], delta, pv[q] - s * b, ps[q], pt[q],
+                                            ph[q], pm[q], cur, n=self.n_hist)))
         # materialize INSIDE the supervised region: an asynchronous device
         # fault surfaces here, after the planes were written in place
         try:
-            return tuple(o.cpu().numpy() for o in out)
+            outs = [np.zeros(len(pv), dtype=d) for d in (np.int32, np.int32, bool, bool, bool)]
+            for q, res in parts:
+                for o, r in zip(outs, res):
+                    o[q] = r.cpu().numpy()
+            return tuple(outs)
         except Exception as e:
             raise PlanesIndeterminate(f"slasher sweep: {e!r}") from e
 
@@ -433,9 +472,7 @@ class SpanStore:
         """Current (min_d, max_d, vote_h) as host numpy arrays at the
         reference's widths (parity tests, checkpoints; device mode syncs)."""
         if self.mode == "device":
-            from .kernels import planes_from_device
-
-            return planes_from_device(self.dev)
+            return self._planes_from_device()
         return tuple(a.copy() for a in self._host_arrays())
 
     def stats(self) -> dict:
@@ -443,6 +480,7 @@ class SpanStore:
             "backend": "device" if self.use_device else "numpy",
             "mode": self.mode,
             "device": None if self.device is None else str(self.device),
+            "mesh": None if self.mesh is None else [str(d) for d in self.mesh],
             "n_validators": self.n,
             "n_pad": self.n_pad,
             "history_length": self.n_hist,
@@ -491,6 +529,7 @@ class EngineSlasher:
         intake_capacity_pairs: int = 1 << 17,
         checkpoint_every: int = 32,
         validator_floor: int = 256,
+        mesh_devices=None,
     ):
         self.config = config or SlasherConfig()
         self.config.validate()
@@ -507,6 +546,7 @@ class EngineSlasher:
             device=device,
             checkpoint_every=checkpoint_every,
             validator_floor=validator_floor,
+            mesh_devices=mesh_devices,
         )
         self.intake_capacity_pairs = intake_capacity_pairs
         self._att_queue: list = []

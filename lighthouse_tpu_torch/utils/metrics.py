@@ -3,7 +3,7 @@
 
 The collectors (Counter, Gauge, Histogram, Registry) and only the metric
 families the port's modules record into (chain, beacon processor, store,
-caches, firehose, resilience and recovery, epoch engine, slasher, loadshed,
+caches, firehose, the serving mesh, resilience and recovery, epoch engine, slasher, loadshed,
 network). Names follow Lighthouse's so
 dashboards transfer. Collectors are process-global and cheap enough for hot
 paths (an observe is a couple of dict ops); exposition is the Prometheus
@@ -292,6 +292,16 @@ FIREHOSE_QUEUE_LATENCY = REGISTRY.histogram(
 FIREHOSE_VERIFIED = REGISTRY.counter(
     "firehose_items_total",
     "Firehose verification outcomes (ok / bad_signature / prep_error)",
+    label_names=("result",),
+)
+MESH_ACTIVE_DEVICES = REGISTRY.gauge(
+    "mesh_active_devices",
+    "Devices serving the last sharded verification dispatch per mesh domain",
+    label_names=("domain",),
+)
+MESH_SHARD_VERDICTS = REGISTRY.counter(
+    "mesh_shard_verdicts_total",
+    "Per-shard verdicts from the sharded serving tier (ok / failed)",
     label_names=("result",),
 )
 RESILIENCE_FAULTS = REGISTRY.counter(

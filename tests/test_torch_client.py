@@ -121,9 +121,11 @@ def test_parser_surface():
     assert args.bls_backend is None and args.epoch_backend is None
     ref = vars(r_parser().parse_args(["bn", "--preset", "minimal", "--metrics", "--slasher",
                                       "--http-port", "0", "--metrics-port", "0"]))
-    assert set(vars(args)) == (set(ref) - {"platform"}) | {"device"}
+    assert set(vars(args)) == (set(ref) - {"platform"}) | {"device", "mesh_devices"}
     assert {k: v for k, v in vars(args).items() if k in ref} == {
         k: v for k, v in ref.items() if k in vars(args)}
+    assert args.mesh_devices is None
+    assert p.parse_args(["bn", "--mesh-devices", "cuda:0,cuda:1"]).mesh_devices == "cuda:0,cuda:1"
     args = p.parse_args(["bn", "--device", "cpu", "--bls-backend", "oracle",
                          "--epoch-backend", "numpy", "--electra-fork-epoch", "0"])
     assert (args.device, args.bls_backend, args.epoch_backend, args.electra_fork_epoch) == (

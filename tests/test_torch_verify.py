@@ -281,7 +281,8 @@ def test_port_imports_neither_jax_nor_reference(registry, batch):
     execution layer's HTTP stack, the native backend, discovery, the test
     harness (the local network and the session fabricator too), the
     conformance runner, the database tools, keys, the validator
-    client, the validator manager and watch included), verifies on the CPU (and through the native backend, its ENR verified),
+    client, the validator manager, watch and the serving mesh's modules
+    included), verifies on the CPU (and through the native backend, its ENR verified),
     runs one numpy epoch boundary, serves a status from a node on the chain
     (its light-client server cache in place), sweeps the slasher's span
     store on the CPU, round-trips a fork-choice snapshot, loads the port's
@@ -322,6 +323,8 @@ import lighthouse_tpu_torch.testing.local_network, lighthouse_tpu_torch.testing.
 import lighthouse_tpu_torch.conformance.generate, lighthouse_tpu_torch.tools.db
 import lighthouse_tpu_torch.keys, lighthouse_tpu_torch.validator_client, lighthouse_tpu_torch.watch
 import lighthouse_tpu_torch.validator_client.runner, lighthouse_tpu_torch.tools.vm
+import lighthouse_tpu_torch.bls.mesh, lighthouse_tpu_torch.bls.sharded
+import lighthouse_tpu_torch.firehose.sharding, lighthouse_tpu_torch.epoch_engine.sharded
 from lighthouse_tpu_torch.network import BeaconNodeService, LoopbackTransport
 from lighthouse_tpu_torch import epoch_engine, state_transition
 from lighthouse_tpu_torch.beacon_chain import BeaconChain
