@@ -283,6 +283,36 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      shape the mesh ran held exact and its new rows timed. Its seconds are
      paid for by the timed repeats cut in earlier phases (REPEAT_CUTS); the
      run prints both.
+  24. the analysis passes on the card (``lighthouse_tpu_torch.analysis``):
+     (a) ``__main__.main(["--json", "--device", "cuda", ...])`` in process,
+     every pass, the certificates in a temporary directory: exit 0; every
+     ``cuda_smem_bytes`` obligation's limit the card's
+     ``shared_memory_per_block_optin``; the ``h100_80gb`` tier's HBM the
+     card's ``total_memory``, its name and power limit nvidia-smi's; every
+     (schedule or chain, rows) checked exact since phase 4 covered by the
+     shared-memory walk at the cluster those rows pick. (b) the residency
+     models against the card's allocator, each structure's bytes equal to
+     its model and the allocator's change within its rounding: the 2^20
+     epoch mirror bound in phase 11, the slasher planes of phase 17's cells
+     (2^20 x 64 and 2^20 x 4096), the 2^18 mirror's 4 row blocks bound in
+     phase 23 (e); a firehose batch of 64 gossip items staged, a second
+     KZG engine's tables, and a light-client cache of phase 16's
+     committees, each built here; then the meta walk's peak against
+     ``max_memory_allocated`` for fq.mont_mul, tower.fq12_mul,
+     pairing.miller_loop_product, pairing.final_exponentiation and
+     kzg.fr_dot at batch 32 (the walk's no lower; the ratio printed) and
+     ``max_safe_shape`` of the pairing graph on h100_80gb. (c) the build
+     sentinel around phase 5's timed batches, phase 11's timed boundary,
+     phase 9's firehose and phase 17's timed ticks: nothing built. (d) the
+     supervisor probe: ``batches[1]`` through the bls supervisor's ladder,
+     its verdict equal to the bare call's, no build, the call on the
+     operands' current device. (e) lockdep in a process of its own
+     (``--lockdep-child``, started before (a) and joined after (d)), its
+     lock factories installed before the package is imported: phase 23
+     (b)'s firehose over the MeshVerifier, its checks included, at
+     LD_VALIDATORS keys; the observed lock-order graph non-empty, its locks
+     the port's, acyclic alone and merged into (a)'s static graph. The main
+     process's locks stay plain, so no phase is timed under lockdep.
 Phases 8-10, 12-16 and 17-23 each set the counts to 0 before and read them after,
 as phase 5 does, and hold any shape they launched that phase 4 did not see
 (phase 14's column and batch shapes, phase 15's and phase 16's must all be
@@ -321,6 +351,7 @@ import argparse
 import json
 import multiprocessing
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -847,8 +878,12 @@ def epoch_phase(spec, raw, comp, dev, rng, profile: bool = True) -> tuple:
     a clean ``epoch_device`` supervisor and the mirror bound once. Returns
     (state at the first slot after the last boundary, sync committee
     indices, measurements)."""
+    import torch
+
     from lighthouse_tpu_torch import epoch_engine, resilience
     from lighthouse_tpu_torch import state_transition as st
+    from lighthouse_tpu_torch.analysis import memory
+    from lighthouse_tpu_torch.analysis.recompile import BuildSentinel
     from lighthouse_tpu_torch.epoch_engine import engine
 
     n = raw.shape[0]
@@ -859,9 +894,16 @@ def epoch_phase(spec, raw, comp, dev, rng, profile: bool = True) -> tuple:
     snap0 = sup.snapshot()
     epoch_engine.set_backend("device", device=dev)
     t = time.time()
+    _sync(dev)
+    alloc0 = torch.cuda.memory_allocated(dev)
     epoch_engine.prepare_state(state)
     _sync(dev)
     bind_s = time.time() - t
+    # phase 24 (b): the mirror's registry columns against the model and the allocator
+    resident = _resident_row("epoch_mirror", list(engine.mirror_of(state).cols.values()),
+                             torch.cuda.memory_allocated(dev) - alloc0,
+                             memory.epoch_mirror_bytes(n, include_epoch_planes=False))
+    sentinel, mark, timed_builds = BuildSentinel(), None, None
     seam_calls, prof = [], {}
     real = epoch_engine.maybe_process_epoch_on_device
 
@@ -890,10 +932,14 @@ def epoch_phase(spec, raw, comp, dev, rng, profile: bool = True) -> tuple:
     try:
         for i in range(n_bound):
             prof["on"] = profile and i == n_bound - 1
+            if i == 1:  # phase 24 (c): the timed boundaries under the build sentinel
+                mark = sentinel.snapshot()
             t0 = time.perf_counter()
             st.process_slots(spec, state, state.slot + 1)
             _sync(dev)
             slots_s = time.perf_counter() - t0
+            if i == EPOCH_TIMED:
+                timed_builds = sentinel.builds_since(mark)
             if len(seam_calls) != i + 1 or seam_calls[i][0] is not True:
                 raise RuntimeError(f"epoch boundary {i}: not handled on the device ({seam_calls})")
             stats = epoch_engine.engine_stats(state)
@@ -926,7 +972,8 @@ def epoch_phase(spec, raw, comp, dev, rng, profile: bool = True) -> tuple:
         "timed": timed, "epoch_ms": ep, "validators_per_s": n / (ep["median"] / 1e3),
         "h2d_bytes_per_epoch": [b["h2d_bytes"] for b in timed], "mirror": stats,
         "supervisor": snap, "profiled": bounds[-1], "sweep_bytes": sweep_bytes,
-        "bound_ms": sweep_bytes / H100_BYTES_PER_S * 1e3,
+        "bound_ms": sweep_bytes / H100_BYTES_PER_S * 1e3, "resident": resident,
+        "timed_builds": timed_builds,
     }
     if prof.get("dev_us"):
         busy = sum(prof["dev_us"].values()) / 1e3
@@ -3215,6 +3262,8 @@ def _slasher_cell(n_val: int, history: int, iters: int, dev, first: int = 0) -> 
     import numpy as np
     import torch
 
+    from lighthouse_tpu_torch.analysis import memory
+    from lighthouse_tpu_torch.analysis.recompile import BuildSentinel
     from lighthouse_tpu_torch.resilience import slasher_supervisor
     from lighthouse_tpu_torch.slasher.engine import SpanStore
 
@@ -3239,6 +3288,14 @@ def _slasher_cell(n_val: int, history: int, iters: int, dev, first: int = 0) -> 
     store.apply(*warm[:4], warm[4])
     bind_s = time.perf_counter() - t0
     plane_bytes = sum(p.numel() * p.element_size() for p in store.dev)
+    # phase 24 (b), (c): the planes against the model and the allocator; the
+    # timed ticks under the build sentinel
+    torch.cuda.synchronize(dev)
+    resident = _resident_row(f"slasher_planes@{n_val}x{history}", list(store.dev),
+                             torch.cuda.memory_allocated(dev) - base,
+                             memory.slasher_span_bytes(n_val, history))
+    sentinel = BuildSentinel()
+    mark = sentinel.snapshot()
     full = store.n_pad * history * 16  # every cell read once and written once (8 B each way)
     ms, false_pos, data_bytes, epoch, rolls = [], 0, 0, store.epoch, 0
     for vidx, src, tgt, vh, cur in timed:
@@ -3251,6 +3308,7 @@ def _slasher_cell(n_val: int, history: int, iters: int, dev, first: int = 0) -> 
         # else the touched rows; each pair's 21 B in and 11 B out
         data_bytes += (full if cur > epoch else np.unique(vidx).size * history * 16) + pairs * 32
         epoch = cur
+    tick_builds = sentinel.builds_since(mark)
     cur = 100 + (first + iters) // SLASHER_TICKS_PER_EPOCH + 1
     inj = rng.choice(n_val, size=8, replace=False).astype(np.int64)
     res = store.apply(
@@ -3294,7 +3352,7 @@ def _slasher_cell(n_val: int, history: int, iters: int, dev, first: int = 0) -> 
         "detection": {"injected_surround": 4, "flagged_surround": surround,
                       "injected_double": 4, "flagged_double": double,
                       "false_positives": false_pos},
-        "span": st,
+        "span": st, "resident": resident, "tick_builds": tick_builds,
     }
     del store
     torch.cuda.empty_cache()
@@ -5565,12 +5623,13 @@ def mesh_firehose_phase(cache, pool, bis_items, bad_pos, sk0: int, dev, verify_g
             "quarantined": state1, "healthy_while_out": healthy, "served_by": list(shrunk),
             "ticks_to_return": len(back), "snapshot": snap},
     }
+    alone = "" if alone_rate is None else f" (phase 9 standalone {alone_rate:.2f})"
     log(f"mesh (b): the firehose over a MeshVerifier of {MESH_SHARDS} shards: offered "
         f"{FIREHOSE_RATE:.0f} att/s for {MESH_STREAM_S} s ({n_stream}), intake {MESH_INTAKE}: "
         f"{st.submitted} accepted, {st.verified} verified, {st.rejected} rejected (the poisoned, "
         f"{n_bad} seen: every verdict as the oracle's; oracle on one poisoned / one honest item "
         f"{oracle} in {oracle_s:.2f} s), {st.dropped} dropped (rate {out['drop_rate']:.4f}), "
-        f"{out['verified_att_per_s']:.2f} att/s (phase 9 standalone {alone_rate:.2f}), p99 "
+        f"{out['verified_att_per_s']:.2f} att/s{alone}, p99 "
         f"{out['p99_queue_ms']:.2f} ms; mesh.shard1 injected twice: bls_shard1 {state1}, "
         f"healthy {healthy}, the first faulted tick served by {list(shrunk)}, the poisoned group "
         f"False in every tick; back on all "
@@ -5631,9 +5690,30 @@ def mesh_epoch_check(spec, state_copy, unsharded, dev) -> dict:
     from lighthouse_tpu_torch import epoch_engine
     from lighthouse_tpu_torch.epoch_engine import engine as epoch_eng
 
+    import torch
+
+    from lighthouse_tpu_torch.analysis import memory
+
     try:
         epoch_engine.set_backend("device", device=dev, mesh_devices=_mesh(MESH_SHARDS, dev))
         t = time.time()
+        # phase 24 (b): the row blocks bound first, against the model and the allocator
+        _sync(dev)
+        alloc0 = torch.cuda.memory_allocated(dev)
+        epoch_engine.prepare_state(state_copy)  # the backend's device and mesh, set above
+        _sync(dev)
+        cols = epoch_eng.mirror_of(state_copy).cols
+        n_val = len(state_copy.validators)
+        per_block = memory.epoch_mirror_bytes(n_val, include_epoch_planes=False,
+                                              mesh_devices=MESH_SHARDS)
+        resident = _resident_row(f"epoch_row_blocks@{MESH_SHARDS}",
+                                 [b for col in cols.values() for b in col],
+                                 torch.cuda.memory_allocated(dev) - alloc0,
+                                 MESH_SHARDS * per_block)
+        blocks_ok = all(sum(col[k].nbytes for col in cols.values()) == per_block
+                        for k in range(MESH_SHARDS))
+        resident["ok"] = resident["ok"] and blocks_ok
+        resident["per_block_model_bytes"] = per_block
         if not epoch_engine.maybe_process_epoch_on_device(spec, state_copy):
             raise RuntimeError("mesh epoch: the device engine refused the state")
         _sync(dev)
@@ -5647,7 +5727,8 @@ def mesh_epoch_check(spec, state_copy, unsharded, dev) -> dict:
     log(f"mesh (e): the parity boundary at {len(state_copy.validators)} validators over "
         f"{MESH_SHARDS} row blocks of {blocks[0]} (first bind included) {dev_s:.3f} s: the tree "
         f"root (every field) == the unsharded device boundary's")
-    return {"validators": len(state_copy.validators), "blocks": blocks, "device_s": dev_s}
+    return {"validators": len(state_copy.validators), "blocks": blocks, "device_s": dev_s,
+            "resident": resident}
 
 
 def mesh_slasher_check(dev) -> dict:
@@ -5720,6 +5801,348 @@ def mesh_slasher_check(dev) -> dict:
         f"on the card ({planes_s:.2f} s to compare); ms per honest tick unsharded "
         f"{json.dumps(out['ms_per_tick']['unsharded'])}, blocked "
         f"{json.dumps(out['ms_per_tick']['blocked'])}")
+    return out
+
+
+# --------------------------------------------------------------------------------------
+# The analysis passes on the card (phase 24)
+# --------------------------------------------------------------------------------------
+
+# (b): the graphs whose peaks the card measures, at the main path's batch
+PEAK_GRAPHS = ("fq.mont_mul", "tower.fq12_mul", "pairing.miller_loop_product",
+               "pairing.final_exponentiation", "kzg.fr_dot")
+PEAK_BATCH = 32
+LARGE_ALLOC = 1 << 20  # the caching allocator splits a block above this size only
+
+
+def _resident(name: str, dev, build, model: int) -> dict:
+    """Build a device-resident structure (``build()`` returns its tensors)
+    between two reads of the allocator; its bytes, the allocator's change
+    and the model's bytes. The allocator charges each allocation rounded up
+    to 512 B, and a large one (above 1 MiB) may take up to 1 MiB more from a
+    pooled block it does not split."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    tensors = list(build())
+    torch.cuda.synchronize(dev)
+    delta = torch.cuda.memory_allocated(dev) - before
+    return _resident_row(name, tensors, delta, model)
+
+
+def _resident_row(name: str, tensors, delta: int, model: int) -> dict:
+    from lighthouse_tpu_torch.analysis import memory
+
+    nbytes = memory.tensor_bytes(tensors)
+    rounded = memory.rounded_bytes(tensors)
+    slack = sum(LARGE_ALLOC for t in tensors if t.untyped_storage().nbytes() > LARGE_ALLOC)
+    return {"structure": name, "model_bytes": int(model), "nbytes": nbytes,
+            "allocator_delta": int(delta), "rounded_bytes": rounded, "large_slack": slack,
+            "tensors": len(tensors),
+            "ok": nbytes == model and rounded <= delta <= rounded + slack}
+
+
+def _graph_peaks(dev, cert: dict) -> list:
+    """(b): each PEAK_GRAPHS graph at PEAK_BATCH on the card after one
+    warm-up, the allocator's cache emptied first: ``max_memory_allocated``
+    over the run (the arguments included) against the meta walk's
+    allocator bound (``peak_alloc_bytes``: a cached block above 1 MiB can be
+    handed out unsplit, up to 1 MiB over the request; after phases 1-23 on
+    an H100 the Miller product's count ran 1,192,448 B over its requests),
+    and the card's requested bytes (``memory_stats``) against the walk's
+    exact peak."""
+    import torch
+
+    from lighthouse_tpu_torch.analysis import bounds, memory
+
+    reg = {n: (fn, specs) for n, fn, specs in bounds.graph_registry(PEAK_BATCH)}
+    walk = {r["graph"]: r for r in cert["rows"] if r["kind"] == "graph_footprint"}
+    rows = []
+    for name in PEAK_GRAPHS:
+        fn, specs = reg[name]
+        args = bounds.materialize(specs, dev)
+        fn(*args)
+        torch.cuda.synchronize(dev)
+        arg_ts = memory._tensors(args)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        requested0 = torch.cuda.memory_stats(dev)["requested_bytes.all.current"]
+        out = fn(*args)
+        torch.cuda.synchronize(dev)
+        card = torch.cuda.max_memory_allocated(dev) - before + memory.rounded_bytes(arg_ts)
+        requested = (torch.cuda.memory_stats(dev)["requested_bytes.all.peak"] - requested0
+                     + memory.tensor_bytes(arg_ts))
+        del out, args, arg_ts
+        w = walk[f"{bounds.REGIME}@b{PEAK_BATCH}/{name}"]
+        rows.append({"graph": name, "batch": PEAK_BATCH, "meta_peak_bytes": w["peak_bytes"],
+                     "meta_peak_alloc_bytes": w["peak_alloc_bytes"], "card_peak_bytes": card,
+                     "card_requested_peak_bytes": requested,
+                     "ratio": card / w["peak_alloc_bytes"],
+                     "requested_ratio": requested / w["peak_bytes"],
+                     "ok": w["peak_alloc_bytes"] >= card and w["peak_bytes"] >= requested})
+    return rows
+
+
+LD_VALIDATORS = 128  # phase 24 (e)'s registry: its gossip pool's 3 committees of 32
+LD_TIMEOUT_S = 300.0  # the lockdep process's limit
+
+
+def lockdep_child(path: str, seed: int) -> int:
+    """Phase 24 (e) in a process of its own (``--lockdep-child PATH``).
+    Lockdep's lock factories are installed before the port's modules are
+    imported, so every lock of the package (the metrics, the kernels' module
+    lock, the supervisors' registry among them) is instrumented from its
+    creation, while the main process times its phases on plain locks. Then
+    phase 23 (b) as the main process runs it (``mesh_firehose_phase``: the
+    firehose over a MeshVerifier of MESH_SHARDS logical shards on the card,
+    the two poisoned items leading, ``mesh.shard1`` faulted twice and back)
+    over a registry of LD_VALIDATORS keys. Writes the observed lock graph and
+    the phase's summary to ``path``."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, HERE)
+    from lighthouse_tpu_torch.analysis import concurrency as lockdep
+
+    lockdep.install()
+    from lighthouse_tpu_torch.bls import backend, pubkey_cache
+
+    t = time.time()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 24)
+    sk0 = int(rng.integers(1 << 62)) | 1
+    raw = _registry_walk((sk0, LD_VALIDATORS))
+    pool = _gossip_pool(rng, LD_VALIDATORS, sk0, 3, 32)
+    bad_pos = (17, 42)
+    bis_items = list(pool[:64])
+    for j in bad_pos:  # another committee's signature: a valid point, a wrong signer
+        other = next(it for it in pool[64:] if it[1] != bis_items[j][1])
+        bis_items[j] = (bis_items[j][0], bis_items[j][1], other[2])
+    cache = pubkey_cache.device_pubkeys_from_raw(raw, device=dev)
+
+    def verify_gossip(items):
+        return backend.verify_indexed_sets_device(cache, items, device=dev)
+
+    fixture_s = time.time() - t
+    try:
+        mesh = mesh_firehose_phase(cache, pool, bis_items, bad_pos, sk0, dev, verify_gossip,
+                                   None)
+    finally:
+        observed = lockdep.observed_report()
+        lockdep.uninstall()
+    mesh.pop("runs")
+    with open(path, "w") as f:
+        json.dump({"observed": observed, "mesh": mesh, "fixture_s": fixture_s,
+                   "seconds": time.time() - t}, f)
+    return 0
+
+
+def _start_lockdep_child(seed: int) -> tuple:
+    """Start ``lockdep_child`` in a new process: (process, result path, log path)."""
+    d = tempfile.mkdtemp(prefix="chip_smoke_lockdep_")
+    out, log_path = os.path.join(d, "observed.json"), os.path.join(d, "child.log")
+    with open(log_path, "w") as lf:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--lockdep-child", out,
+             "--seed", str(seed)], stdout=lf, stderr=subprocess.STDOUT, cwd=HERE)
+    return proc, out, log_path
+
+
+def _join_lockdep_child(proc, out: str, log_path: str) -> dict:
+    """Wait for the lockdep process; its result, or an error with its log's tail."""
+    try:
+        rc = proc.wait(LD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        rc = None
+    with open(log_path) as f:
+        lines = f.read().splitlines()
+    if rc != 0 or not os.path.exists(out):
+        raise RuntimeError(f"analysis (e): the lockdep process exited {rc}: "
+                           + "\n".join(lines[-40:]))
+    with open(out) as f:
+        res = json.load(f)
+    res["log"] = [ln for ln in lines if ln.startswith("mesh (b)")]
+    shutil.rmtree(os.path.dirname(out), ignore_errors=True)
+    return res
+
+
+def analysis_phase(dev, card: str, done: set, p24: dict, cache, batch, pool, kz, lc_spec,
+                   seed: int) -> dict:
+    """Phase 24: the analysis passes on the card (see the module docstring).
+    ``p24`` holds what earlier phases recorded for it: "builds" (the build
+    sentinel around phase 5's timed batches, phase 11's timed boundaries,
+    phase 9's firehose and phase 17's ticks) and "resident" (the epoch
+    mirror bound in phase 11, the slasher planes of phase 17, the row blocks
+    of phase 23 (e)). (e) runs in a process of its own, started first and
+    joined after (d); its observed graph is merged into (a)'s static one."""
+    import contextlib
+    import io
+
+    import torch
+
+    from lighthouse_tpu_torch.analysis import __main__ as cli, concurrency, memory, supervised
+    from lighthouse_tpu_torch.bls import backend
+    from lighthouse_tpu_torch.kzg.engine import CellEngine
+    from lighthouse_tpu_torch.light_client import engine as lce
+    from lighthouse_tpu_torch.resilience import bls_supervisor
+
+    out, part_s = {}, {}
+    props = torch.cuda.get_device_properties(dev)
+    tier = memory.DEVICE_TIERS["h100_80gb"]
+
+    # (e) lockdep in its own process, beside (a)-(d)
+    t_e = time.time()
+    child = _start_lockdep_child(seed)
+    try:
+        # (a) the CLI in process, every pass, the certificates in a temporary
+        # directory
+        t = time.time()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_analysis_") as cert_dir:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["--json", "--device", str(dev), "--cert-dir", cert_dir])
+            rep = json.loads(buf.getvalue().strip().splitlines()[-1])
+            with open(os.path.join(cert_dir, "BOUNDS_CERT.json")) as f:
+                bcert = json.load(f)
+            with open(os.path.join(cert_dir, "MEMORY_CERT.json")) as f:
+                mcert = json.load(f)
+            with open(os.path.join(cert_dir, "CONCURRENCY_CERT.json")) as f:
+                ccert = json.load(f)
+        if rc != 0 or not rep["ok"]:
+            bad = {k: v for k, v in rep.items() if isinstance(v, dict) and not v.get("ok")}
+            raise RuntimeError(f"analysis: the CLI exited {rc}: {json.dumps(bad)[:2000]}")
+        smem_limits = {r["limit"] for r in bcert["obligations"] if r["kind"] == "cuda_smem_bytes"}
+        if smem_limits != {props.shared_memory_per_block_optin}:
+            raise RuntimeError(f"analysis: cuda_smem_bytes limits {smem_limits} != the card's "
+                               f"opt-in {props.shared_memory_per_block_optin}")
+        if tier["hbm_bytes"] != props.total_memory:
+            raise RuntimeError(f"analysis: h100_80gb hbm_bytes {tier['hbm_bytes']} != the card's "
+                               f"total_memory {props.total_memory}")
+        if tier["smem_block_optin_bytes"] != props.shared_memory_per_block_optin:
+            raise RuntimeError("analysis: h100_80gb smem_block_optin_bytes != the card's")
+        if card != f"{tier['card']}, {tier['power_limit']}":
+            raise RuntimeError(f"analysis: the card is {card!r}, the tier says "
+                               f"{tier['card']!r}, {tier['power_limit']!r}")
+        walk = [r for r in mcert["rows"] if r["kind"] == "smem_tile"]
+        missing = sorted(s for s in done if not memory.launch_in_walk(walk, *s))
+        if missing:
+            raise RuntimeError(f"analysis: launched shapes missing from the smem walk: {missing[:8]}")
+        out["cli"] = {k: ({kk: vv for kk, vv in v.items() if kk not in ("peaks", "planner",
+                                                                        "findings")}
+                          if isinstance(v, dict) else v) for k, v in rep.items()}
+        out["smem"] = {"rows": len(walk), "shapes_checked": len(done),
+                       "max_bytes": max(r["smem_bytes"] for r in walk),
+                       "optin_bytes": props.shared_memory_per_block_optin}
+        part_s["a"] = time.time() - t
+
+        # (b) the residency models against the allocator, and the graph peaks
+        t = time.time()
+        resident = list(p24["resident"])
+        items = pool[:64]
+        staged = {}
+
+        def stage():
+            staged.update(backend.prepare_batch(items, device=dev))
+            return staged.values()
+
+        k_pad = backend.bucket(max(len(ix) for ix, _, _ in items))
+        resident.append(_resident("firehose_staging", dev, stage, memory.firehose_staging_bytes(
+            max_batch=len(items), prep_depth=0, k_pad=k_pad)))
+        eng = CellEngine(kz["ctx"], device=dev)
+        resident.append(_resident("kzg_tables", dev, lambda: [*eng.tables(), eng.z2_tab],
+                                  memory.kzg_table_bytes(kz["ctx"].cells, kz["ctx"].k)))
+        served = lce.get_engine(lc_spec, dev)
+        if not served._host_rows:
+            raise RuntimeError("analysis: phase 16's light-client engine holds no committee")
+        lc = lce.LcEngine(lc_spec, dev)
+        lc._host_rows = list(served._host_rows)  # phase 16's committees, decompressed there
+        resident.append(_resident("lc_committee_cache", dev, lambda: [lc.cache_arr()],
+                                  memory.lc_committee_cache_bytes(len(lc._host_rows),
+                                                                  lc.committee_size)))
+        del eng, lc, staged
+        bad = [r for r in resident if not r["ok"]]
+        if bad:
+            raise RuntimeError(f"analysis: residency model or allocator off: {bad}")
+        peaks = _graph_peaks(dev, mcert)
+        if not all(r["ok"] for r in peaks):
+            raise RuntimeError(f"analysis: the meta walk below the card: {peaks}")
+        safe = memory.max_safe_shape("pairing.miller_loop_product", "h100_80gb", cert=mcert)
+        out.update(resident=resident, peaks=peaks, max_safe_pairing_batch=safe)
+        part_s["b"] = time.time() - t
+
+        # (c) the build sentinel around the loops of phases 5, 9, 11 and 17
+        builds = p24["builds"]
+        if any(builds.values()):
+            raise RuntimeError(f"analysis: steady loops built: {builds}")
+        out["builds"] = builds
+
+        # (d) the supervisor probe: a main-path batch through the bls ladder
+        t = time.time()
+        sup = supervised.supervisor_probe(
+            dev, steps=2, supervisor=bls_supervisor(),
+            call=lambda: backend.verify_indexed_sets_device(cache, batch, device=dev))
+        if not sup["ok"] or sup["current_devices"] != [torch.cuda.current_device()]:
+            raise RuntimeError(f"analysis: supervisor probe: {sup}")
+        out["supervisor"] = sup
+        part_s["d"] = time.time() - t
+
+        ld = _join_lockdep_child(*child)
+    finally:
+        stop_process(child[0])
+    part_s["e"] = time.time() - t_e
+
+    # (e) lockdep: the observed graph of phase 23 (b)'s firehose in its own
+    # process, alone and merged into (a)'s static graph
+    edges = ld["observed"]["edges"]
+    ids = {e["from"] for e in edges} | {e["to"] for e in edges}
+    static = {lock for lock in concurrency._parse_tree(os.path.join(
+        HERE, "lighthouse_tpu_torch")).lock_sites.values()}
+    alone = concurrency.merge_observed({}, edges)
+    merged = concurrency.merge_observed(
+        {(e["from"], e["to"]): tuple(e["site"].rsplit(":", 1))
+         for e in ccert["lock_graph"]["edges"]}, edges)
+    if not edges or not alone["ok"] or not merged["ok"]:
+        raise RuntimeError(f"analysis: lockdep: {len(edges)} edges, alone {alone}, merged "
+                           f"{merged}")
+    if not ids & static or any(i.startswith("lighthouse_tpu/") for i in ids):
+        raise RuntimeError(f"analysis: observed locks not the port's: {sorted(ids)[:8]}")
+    out["lockdep"] = {"edges": len(edges), "locks": ld["observed"]["n_locks"],
+                      "edge_list": edges, "process_s": ld["seconds"],
+                      "fixture_s": ld["fixture_s"], "mesh": ld["mesh"],
+                      "static_ids": len(ids & static), "site_ids": len(ids - static),
+                      "merged_edges": merged["n_observed_edges"],
+                      "static_edges": merged["n_static_edges"]}
+    out["part_s"] = part_s
+    log(f"analysis (a): python -m lighthouse_tpu_torch.analysis --device {dev} in process, every "
+        f"pass ok in {part_s['a']:.1f} s: {rep['bounds']['n_obligations']} bound obligations "
+        f"(cuda_smem_bytes limit {props.shared_memory_per_block_optin} == the card's opt-in), "
+        f"{rep['memory']['n_rows']} memory rows ({len(walk)} smem rows covering all "
+        f"{len(done)} launched shapes, largest {out['smem']['max_bytes']} B), hbm "
+        f"{props.total_memory} B == h100_80gb's; {rep['concurrency']['n_lock_classes']} lock "
+        f"classes, {rep['concurrency']['n_edges']} static edges")
+    log("analysis (b): residency " + json.dumps(
+        {r["structure"]: [r["model_bytes"], r["nbytes"], r["allocator_delta"]] for r in resident})
+        + " (model, nbytes, allocator delta); peaks at batch 32 " + json.dumps(
+        {r["graph"]: [r["meta_peak_alloc_bytes"], r["card_peak_bytes"], round(r["ratio"], 6),
+                      r["meta_peak_bytes"], r["card_requested_peak_bytes"],
+                      round(r["requested_ratio"], 6)] for r in peaks})
+        + " (the walk's allocator bound, the card's max_memory_allocated, their ratio; the walk's "
+        f"peak, the card's requested bytes, their ratio); max_safe_shape(pairing."
+        f"miller_loop_product, h100_80gb) = {safe}; {part_s['b']:.1f} s")
+    log(f"analysis (c): builds after warm-up {json.dumps(builds)}; (d) supervisor probe on "
+        f"{sup['device']}: transparent {sup['transparent']}, builds {sup['steady_state_builds']}, "
+        f"current devices {sup['current_devices']}, {part_s['d']:.1f} s; (e) lockdep in its own "
+        f"process over phase 23 (b)'s firehose at {LD_VALIDATORS} keys ({ld['seconds']:.1f} s, "
+        f"fixture {ld['fixture_s']:.1f} s; joined {part_s['e']:.1f} s after its start): "
+        f"{len(edges)} observed edges over {ld['observed']['n_locks']} locks, acyclic alone and "
+        f"merged: " + json.dumps([[e["from"], e["to"], e["count"]] for e in edges]))
+    for ln in ld["log"]:
+        log(f"analysis (e), the lockdep process: {ln}")
     return out
 
 
@@ -6106,6 +6529,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--report", default=None,
                     help="also write every measurement as JSON to this path")
+    ap.add_argument("--lockdep-child", default=None, metavar="PATH",
+                    help="run only phase 24 (e), the process phase 24 starts, and write its "
+                         "observed lock graph to PATH")
     args = ap.parse_args()
 
     import torch
@@ -6118,6 +6544,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     import numpy as np
+
+    if args.lockdep_child:
+        return lockdep_child(args.lockdep_child, args.seed)
 
     from lighthouse_tpu_torch import bls
     from lighthouse_tpu_torch.bls import backend, pubkey_cache
@@ -6315,9 +6744,14 @@ def main() -> int:
     clusters = cluster_checks(dev, gen)
 
     # 5. the main path
+    from lighthouse_tpu_torch.analysis.recompile import BuildSentinel
+
+    sentinel = BuildSentinel()  # phase 24 (c): the steady loops build nothing
+    p24 = {"builds": {}, "resident": []}
     torch.cuda.reset_peak_memory_stats()
     stage_ms = {"host": 0.0, "h2c": 0.0, "prep": 0.0, "pair": 0.0}
     fm.reset_counts()
+    mark = sentinel.snapshot()
     t_main = time.time()
     for items in batches[1:]:
         t = time.time()
@@ -6340,6 +6774,7 @@ def main() -> int:
         for k, dt in zip(stage_ms, (t1 - t, t2 - t1, t3 - t2, t4 - t3)):
             stage_ms[k] += dt * 1e3
     t_valid = time.time() - t_main
+    p24["builds"]["phase5_timed_batches"] = sentinel.builds_since(mark)
     if backend.verify_indexed_sets_device(cache, poisoned, device=dev):
         raise RuntimeError("the poisoned batch verified")
     torch.cuda.synchronize()
@@ -6437,7 +6872,9 @@ def main() -> int:
         supervisor=sup,
     )
     fm.reset_counts()
+    mark = sentinel.snapshot()
     n_stream, wall = _pace_stream(engine, pool, FIREHOSE_RATE, STREAM_S, 120.0)
+    p24["builds"]["phase9_firehose"] = sentinel.builds_since(mark)
     st = engine.stats()
     runs["gossip"] = _read_counts("firehose phase")
     snap = sup.snapshot()
@@ -6533,6 +6970,8 @@ def main() -> int:
         f"first state root {parity['first_root_s']:.2f} s; phase {time.time() - t:.1f} s")
     t = time.time()
     estate, sync_idx, epoch_m = epoch_phase(espec, raw, comp, dev, erng)
+    p24["resident"].append(epoch_m["resident"])
+    p24["builds"]["phase11_timed_boundary"] = epoch_m["timed_builds"]
     log(f"epoch: {args.validators} validators, state built in {epoch_m['build_s']:.2f} s, mirror "
         f"bound in {epoch_m['bind_s']:.2f} s; warm-up boundary {epoch_m['warmup']['epoch_ms']:.2f} "
         f"ms in the engine ({epoch_m['warmup']['slots_ms']:.2f} ms through process_slots); "
@@ -6653,6 +7092,9 @@ def main() -> int:
     t = time.time()
     sm, sl17 = slasher_phase(espec, chain, sk0, dev, erng)
     runs.update(sm.pop("runs"))
+    for cell in ("bench", "deploy"):
+        p24["resident"].append(sm[cell]["resident"])
+        p24["builds"][f"phase17_{cell}_ticks"] = sm[cell]["tick_builds"]
     slasher_runs = ("slasher_gossip", "slasher_sigs")
     unseen = sorted({s for k in slasher_runs for s in runs[k]["log"] if s not in done})
     if unseen:
@@ -6795,6 +7237,14 @@ def main() -> int:
         f"({', '.join(f'{k} {v:.1f} s' for k, v in p23_s.items())}); the repeat cuts saved "
         f"{saved:.1f} s ({', '.join(f'{k} {c['saved_s']:.2f} s' for k, c in p23['repeat_cuts'].items())})")
 
+    # 24. the analysis passes on the card
+    t = time.time()
+    p24["resident"].append(parity["mesh"]["resident"])
+    am24 = analysis_phase(dev, card, done, p24, cache, batches[1], pool, kz, espec, args.seed)
+    am24["phase_s"] = time.time() - t
+    log(f"analysis: phase 24 {am24['phase_s']:.1f} s "
+        f"({', '.join(f'{k} {v:.1f} s' for k, v in am24['part_s'].items())}; (e) beside (a)-(d))")
+
     log(f"elapsed: {time.time() - t_start:.1f} s")
     table = []
     for r in krows:
@@ -6850,6 +7300,7 @@ def main() -> int:
                 "local_network": {**ln, "fabricated": fb, "karabina": ka,
                                   "launches": {k: runs[k]["by"] for k in ln_runs}},
                 "mesh": {**p23, "launches": {k: runs[k]["by"] for k in mesh_runs}},
+                "analysis": am24,
             }, f, indent=1)
     print(card, flush=True)
     print(json.dumps({"kernels": table}), flush=True)

@@ -410,7 +410,9 @@ class BeaconChain:
         fork choice. Returns the block root."""
         block = signed_block.message
         block_root = type(block).hash_tree_root(block)
-        with self.lock, BLOCK_PROCESSING_TIMES.time():
+        # imports serialize on the chain lock by design; the epoch sweep's device
+        # barrier inside runs under the epoch_device supervisor's watchdog
+        with self.lock, BLOCK_PROCESSING_TIMES.time():  # lint: allow(blocking-under-lock)
             root = self._process_block_locked(
                 signed_block, block, block_root, is_first_block_in_slot
             )
@@ -482,7 +484,7 @@ class BeaconChain:
             return None
         blk, blobs = res
         root = BeaconBlockHeader.hash_tree_root(hdr.message)
-        with self.lock:
+        with self.lock:  # lint: allow(blocking-under-lock) as in process_block
             imported = self._process_block_locked(
                 blk, blk.message, root, True, check_availability=False
             )
@@ -578,7 +580,7 @@ class BeaconChain:
         roots = []
         if not blocks:
             return roots
-        with self.lock:
+        with self.lock:  # lint: allow(blocking-under-lock) as in process_block
             return self._process_chain_segment_locked(
                 blocks, roots, blobs_by_root or {}
             )

@@ -227,7 +227,8 @@ def verify_signature_sets_device(pk_agg, sig, msg_x, msg_y, n_real: int, *, scal
     dev = pk_agg.device
     valid = torch.arange(n, device=dev) < n_real
     pkx, pky, sax, say, set_ok = prologue_stage(pk_agg, sig, _scalars(scalars, n, n_real, dev), valid)
-    return bool(pair_stage(pkx, pky, sax, say, msg_x, msg_y, set_ok, valid))
+    # the batch's one verdict read
+    return bool(pair_stage(pkx, pky, sax, say, msg_x, msg_y, set_ok, valid))  # lint: allow(host-sync)
 
 
 def verify_signature_sets_device_h2c(pk_agg, sig, u0, u1, n_real: int, *, scalars=None) -> bool:

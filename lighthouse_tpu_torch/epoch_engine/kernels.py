@@ -191,10 +191,11 @@ def from_device(t, epochs: bool = False) -> np.ndarray:
     """A device column (one tensor, or its row blocks in order) -> the
     host's uint64 (bool) array; ``epochs`` maps FAR back to
     FAR_FUTURE_EPOCH. Negative values cannot be u64 and raise."""
+    # the write-back's read, once per column after the sweep's synchronize
     if isinstance(t, (list, tuple)):
-        a = np.concatenate([x.detach().cpu().numpy() for x in t])
+        a = np.concatenate([x.detach().cpu().numpy() for x in t])  # lint: allow(host-sync)
     else:
-        a = t.detach().cpu().numpy()
+        a = t.detach().cpu().numpy()  # lint: allow(host-sync)
     if a.dtype == np.bool_:
         return a
     if a.size and int(a.min()) < 0:

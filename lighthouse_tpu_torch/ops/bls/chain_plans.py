@@ -13,10 +13,10 @@ program is held to.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
+
+from . import fq
 
 
 def wnaf_digits(e: int, w: int) -> list[int]:
@@ -106,7 +106,7 @@ def _schedule_cost(schedule: ChainSchedule, dbl_cost=1.0, add_cost=1.2) -> float
     )
 
 
-@functools.lru_cache(maxsize=None)
+@fq.certified_cache
 def compile_chains(scalars: tuple, window: int | None = None, signed: bool = True) -> ChainSchedule:
     """Compile host-known scalars into the cheapest joint schedule."""
     mags = [abs(int(e)) for e in scalars]
@@ -202,8 +202,6 @@ def run_field_chains(schedule: ChainSchedule, bases, sqr_fn, mul_fn, one_arr, mu
     """Execute an unsigned schedule in a multiplicative group: bases
     [C, *batch, k, 25] -> per-chain powers, same shape. The table is built
     with a log-depth ladder (one stacked multiply per level)."""
-    from . import fq
-
     if schedule.signed or any(schedule.negate):
         raise ValueError("field chains take unsigned schedules")
     mul_many_fn = mul_many_fn or mul_fn

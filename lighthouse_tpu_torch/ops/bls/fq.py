@@ -24,7 +24,9 @@ device (``dconst``): importing this module touches no device.
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -51,17 +53,90 @@ class BoundError(AssertionError):
 # --------------------------------------------------------------------------------------
 
 _CERT_SINK = None
+# per thread: the obligation logs of the static derivations in progress
+_CAPTURE = threading.local()
+
+
+def _record(rec: tuple) -> None:
+    """One obligation (kind, proven, limit, note, ok) into the sink and into
+    every derivation log open on this thread."""
+    if _CERT_SINK is not None:
+        kind, proven, limit, note, ok = rec
+        _CERT_SINK.record(kind, proven, limit, note=note, ok=ok)
+    for log in getattr(_CAPTURE, "stack", ()):
+        log.append(rec)
 
 
 def _cert(kind: str, proven: int, limit: int, note: str = "") -> bool:
     """Check the obligation ``proven <= limit``: record it in the sink (if
     one is installed) and raise ``BoundError`` when it fails."""
     ok = proven <= limit
-    if _CERT_SINK is not None:
-        _CERT_SINK.record(kind, proven, limit, note=note, ok=ok)
+    _record((kind, proven, limit, note, ok))
     if not ok:
         raise BoundError(f"{kind} ({note}): bound {proven} exceeds {limit}")
     return ok
+
+
+@contextlib.contextmanager
+def capture_certs():
+    """Collect the obligations recorded (or replayed) on this thread while
+    active, nested logs included in their enclosing ones."""
+    stack = _CAPTURE.__dict__.setdefault("stack", [])
+    log: list = []
+    stack.append(log)
+    try:
+        yield log
+    finally:
+        stack.pop()
+
+
+def replay_certs(log) -> None:
+    """Record a cached derivation's obligations again (a cache hit proves
+    what the miss proved)."""
+    if _CERT_SINK is None and not getattr(_CAPTURE, "stack", None):
+        return
+    for rec in log:
+        _record(rec)
+
+
+# Build counters: what a steady loop must not redo once warm (uploads of
+# constants to a device, misses of the static builders, and fused_mul's
+# schedules, uploads and library loads). The build sentinel
+# (analysis/recompile.py) reads them.
+builds: dict = {"dconst": 0}
+_BUILDS_LOCK = threading.Lock()
+
+
+def _bump(counter: str) -> None:
+    with _BUILDS_LOCK:
+        builds[counter] = builds.get(counter, 0) + 1
+
+
+def certified_cache(fn):
+    """``functools.lru_cache(maxsize=None)`` for a static builder whose
+    derivation proves bound obligations: a miss derives (recording into an
+    installed sink as it goes) and keeps what it recorded, a hit replays it,
+    so a sink sees the same obligations on every call whatever ran before.
+    Misses count in ``builds["cache:<name>"]``."""
+    cache: dict = {}
+    counter = f"cache:{fn.__name__}"
+    with _BUILDS_LOCK:
+        builds.setdefault(counter, 0)
+
+    @functools.wraps(fn)
+    def cached(*args, **kwargs):
+        key = (args, tuple(sorted(kwargs.items()))) if kwargs else args
+        hit = cache.get(key)
+        if hit is not None:
+            replay_certs(hit[1])
+            return hit[0]
+        with capture_certs() as log:
+            value = fn(*args, **kwargs)
+        _bump(counter)
+        return cache.setdefault(key, (value, tuple(log)))[0]
+
+    cached.cache_clear = cache.clear
+    return cached
 
 
 # --------------------------------------------------------------------------------------
@@ -101,6 +176,7 @@ def dconst(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     if hit is None:
         hit = (arr, torch.from_numpy(np.ascontiguousarray(arr)).to(like.device))
         _DCONST[key] = hit
+        _bump("dconst")
     return hit[1]
 
 
@@ -116,13 +192,13 @@ def from_ints(xs, device) -> torch.Tensor:
 def to_int(a) -> int:
     """Limbs -> Python int mod p (accepts lazy values)."""
     if isinstance(a, torch.Tensor):
-        a = a.detach().cpu().numpy()
+        a = a.detach().cpu().numpy()  # lint: allow(host-sync) host helper: limbs to a Python int
     return limbs_to_int(a) % P
 
 
 def to_ints(a) -> list:
     if isinstance(a, torch.Tensor):
-        a = a.detach().cpu().numpy()
+        a = a.detach().cpu().numpy()  # lint: allow(host-sync) host helper: limbs to Python ints
     return [to_int(a[i]) for i in range(a.shape[0])]
 
 
@@ -447,7 +523,7 @@ def _drop_zero_tops_plan(w: int, s: _RState, ops: list):
     return w, s
 
 
-@functools.lru_cache(maxsize=None)
+@certified_cache
 def _reduce_plan(
     width: int, limb_bounds: tuple, value_bound: int, value_limit: int, limb_target: int
 ) -> tuple:
@@ -585,8 +661,14 @@ def chain_top_limb() -> int:
     return min(CHAIN_LIMB_TARGET, CHAIN_VALUE_LIMIT >> (LIMB_BITS * 24))
 
 
-_cert("chain_in_budget_limb", CHAIN_LIMB_TARGET, _IN_LIMB)
-_cert("chain_in_budget_value", CHAIN_VALUE_LIMIT, _IN_VALUE)
+def _import_certs() -> None:
+    """The chain bound's fit in the conv budget: proved at import, and again
+    by the bounds certifier (analysis/bounds.py) into its sink."""
+    _cert("chain_in_budget_limb", CHAIN_LIMB_TARGET, _IN_LIMB)
+    _cert("chain_in_budget_value", CHAIN_VALUE_LIMIT, _IN_VALUE)
+
+
+_import_certs()
 
 
 def mont_mul(a, b):
@@ -635,7 +717,7 @@ def canonical(a):
 # --------------------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=None)
+@certified_cache
 def _pow_program(e: int, name: str):
     from . import chain_plans, fused_mul
 

@@ -52,8 +52,20 @@ not from their encoding) replay the same schedule on int64 torch tensors,
 so holding a kernel against them also checks the encoding; ``plain_chain``
 replays a chain program step by step. The wrappers ``run_fused`` and
 ``run_chain`` take the plain versions only for CPU tensors; for a CUDA
-tensor they launch the kernel or raise. ``launches`` counts kernel
-launches, ``plain_calls`` calls of the plain version.
+tensor they launch the kernel or raise. For a ``meta`` tensor (the port's
+abstract execution, which the bounds certifier of ``analysis/bounds.py``
+runs as the reference runs ``eval_shape``) they record the launch's
+obligations and return an empty output: no arithmetic, no launch.
+``launches`` counts kernel launches, ``plain_calls`` calls of the plain
+version, and ``fq.builds`` what a warm loop must not redo.
+
+The schedules, prepared plans and chain programs are cached, and their
+derivations prove the bounds. A schedule keeps the obligations its
+derivation recorded (``Schedule.obligations``); the chain programs' builders
+are ``fq.certified_cache``s, which keep them beside the value. A cache hit
+replays them into an installed sink (``fq.capture_certs``/
+``fq.replay_certs``), so a certificate taken after warm-up proves as much as
+one taken first.
 
 Threads: the firehose calls the kernels from its device thread and the
 supervisor's watchdog workers. One module lock (``_LOCK``) guards the
@@ -65,7 +77,6 @@ not depend on which thread arrives first.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import subprocess
@@ -108,6 +119,14 @@ launch_log: dict = {}
 # schedule label -> Schedule: every plan signature prepared so far (a label is
 # the call site's name, suffixed "#k" when one name has k bound signatures)
 SCHEDULES: dict = {}
+# Build counters, kept in fq.builds (what the build sentinel of
+# analysis/recompile.py watches): schedules derived, plan-cache misses,
+# per-device uploads of a schedule's or a chain program's tables, and loads
+# and nvcc builds of the library
+_bump = fq._bump
+for _counter in ("schedule", "plan_miss", "desc_upload", "chain_upload", "lib_load",
+                 "lib_build"):
+    fq.builds.setdefault(_counter, 0)
 
 
 def reset_counts() -> None:
@@ -339,6 +358,9 @@ class Schedule:
         self.identity = lin is None
         self.in_bounds = in_bounds
         self.plan = plan
+        # the obligations its derivation recorded (set by mul_schedule or
+        # prepare_plan, which replay them whenever their cache hits)
+        self.obligations: tuple = ()
         if lin is None:
             one, zero = np.ones((1, 1), np.int64), np.zeros((1, 1), np.int64)
             c0 = np.zeros((1, fq.NLIMBS), np.int64)
@@ -437,6 +459,7 @@ class Schedule:
         with _LOCK:
             hit = self._dev.get(device)
             if hit is None:
+                _bump("desc_upload")
                 ints = torch.from_numpy(self.ints).to(device)
                 i64 = torch.from_numpy(self.i64).to(device)
                 desc = _PlanDesc(
@@ -577,6 +600,7 @@ def build(verbose: bool = False) -> str:
                 nvcc = "nvcc"
             tmp = f"{lib}.{os.getpid()}.tmp"
             cmd = [nvcc] + (["-Xptxas=-v"] if verbose else []) + _NVCC_FLAGS + ["-o", tmp, _SRC]
+            _bump("lib_build")
             res = subprocess.run(cmd, capture_output=True, text=True)
             if res.returncode != 0:
                 raise RuntimeError(f"nvcc failed:\n{res.stdout}\n{res.stderr}")
@@ -592,6 +616,7 @@ def _lib():
     global _LIB
     with _LOCK:
         if _LIB is None:
+            _bump("lib_load")
             lib = ctypes.CDLL(build())
             vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.lh_plan_launch.argtypes = [
@@ -627,17 +652,36 @@ def cluster_size(rows: int, lanes: int) -> int:
     return c
 
 
-def _check_operand(x, shape, what: str):
+def _check_operand(x, shape, what: str, cuda: bool = True):
+    """dtype and shape (and, for a launch, the current CUDA device)."""
     if x.dtype != torch.int64:
         raise TypeError(f"fused_mul kernel takes int64 limb planes ({what}: {x.dtype})")
     if tuple(x.shape) != shape:
         raise ValueError(f"fused_mul kernel: bad {what} shape {tuple(x.shape)}, want {shape}")
-    if x.device.type != "cuda" or x.device.index not in (None, torch.cuda.current_device()):
+    if cuda and (x.device.type != "cuda"
+                 or x.device.index not in (None, torch.cuda.current_device())):
         raise ValueError(f"fused_mul kernel: {what} is not on the current CUDA device")
 
 
 def _inner_contiguous(x):
     return x if x.stride(2) == 1 else x.contiguous()
+
+
+def meta_fused(sched: Schedule, a, b):
+    """The plan kernel on the ``meta`` device, the port's abstract execution
+    (the reference's ``eval_shape``): the launch's checks, copies and
+    obligations, then an empty output of the kernel's shape. No arithmetic,
+    no launch."""
+    rows = a.shape[0]
+    _check_operand(a, (rows, sched.n_a, fq.NLIMBS), "a", cuda=False)
+    _check_operand(b, (rows, sched.n_b, fq.NLIMBS), "b", cuda=False)
+    a, b = _inner_contiguous(a), _inner_contiguous(b)  # the copies the launch makes
+    out = torch.empty((rows, sched.R, fq.NLIMBS), dtype=torch.int64, device=a.device)
+    if rows:  # the launch's obligations: the cluster the rows pick, its shared memory
+        C = cluster_size(rows, sched.L) if sched.has_out else 1
+        fq._cert("cuda_smem_bytes", sched._shape[C][1], SMEM_LIMIT, note=f"{sched.name} C={C}")
+        fq._cert("cuda_plane_width", sched.wmax, _W_MAX, note=sched.name)
+    return out
 
 
 def cuda_fused(sched: Schedule, a, b, cluster: int | None = None):
@@ -671,9 +715,12 @@ def cuda_fused(sched: Schedule, a, b, cluster: int | None = None):
 
 def run_fused(sched: Schedule, a, b):
     """The plan kernel's wrapper: the plain version for CPU tensors; the
-    CUDA kernel (or an error) for CUDA tensors."""
+    CUDA kernel (or an error) for CUDA tensors; for meta tensors the
+    launch's obligations and an empty output (``meta_fused``)."""
     if a.device.type == "cpu":
         return plain_plan(sched, a, b)
+    if a.device.type == "meta":
+        return meta_fused(sched, a, b)
     if a.device.type != "cuda":
         raise ValueError(f"fused_mul: unsupported device {a.device}")
     return cuda_fused(sched, a, b)
@@ -684,13 +731,23 @@ def run_fused(sched: Schedule, a, b):
 # --------------------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=None)
 def mul_schedule(lazy: bool) -> Schedule:
-    """The static schedule of ``fused_mul`` (the reference's bound walk)."""
+    """The static schedule of ``fused_mul`` (the reference's bound walk),
+    derived once and kept in SCHEDULES with the obligations its derivation
+    recorded; a hit replays them (into an installed sink)."""
     name = "pallas_mul_lazy" if lazy else "pallas_mul"
-    with _LOCK:  # the cache may miss in two threads at once: build once
-        held = SCHEDULES.get(name)
-        return held if held is not None else _new_mul_schedule(lazy, name)
+    held = SCHEDULES.get(name)
+    if held is None:
+        with _LOCK:  # two threads may miss at once: build once
+            held = SCHEDULES.get(name)
+            if held is None:
+                with fq.capture_certs() as log:
+                    held = _new_mul_schedule(lazy, name)
+                held.obligations = tuple(log)
+                SCHEDULES[name] = held
+                return held
+    fq.replay_certs(held.obligations)
+    return held
 
 
 def _new_mul_schedule(lazy: bool, name: str) -> Schedule:
@@ -706,9 +763,8 @@ def _new_mul_schedule(lazy: bool, name: str) -> Schedule:
     _final_certs(state, value_limit, limb_target, name)
     top = min(in_limb, in_value >> (16 * 24))
     bounds = ((in_limb, in_value - 1, top),) * 2
-    sched = Schedule("K2" if lazy else "K1", name, 1, ops, (), in_bounds=bounds)
-    SCHEDULES[sched.label] = sched
-    return sched
+    _bump("schedule")
+    return Schedule("K2" if lazy else "K1", name, 1, ops, (), in_bounds=bounds)
 
 
 def _batch_shape(a, b, k: int):
@@ -842,22 +898,30 @@ class _PreparedPlan:
 
 
 def prepare_plan(plan, n_a, in_bound_a, in_bound_b, name="", out_bound=None):
-    """The cached static half of ``execute_plan`` for one call signature."""
+    """The cached static half of ``execute_plan`` for one call signature. A
+    miss derives it and keeps the obligations the derivation recorded; a hit
+    replays them (into an installed sink), so the cache hides no proof."""
     key = (
         id(plan), n_a, _bound_key(in_bound_a), _bound_key(in_bound_b), name,
         _bound_key(out_bound),
     )
     with _LOCK:
         hit = _PLAN_CACHE.get(key)
-        if hit is None:
+        if hit is not None:
+            fq.replay_certs(hit.sched.obligations)
+            return hit
+        _bump("plan_miss")
+        with fq.capture_certs() as log:
             hit = _PreparedPlan(plan, n_a, in_bound_a, in_bound_b, name, out_bound)
-            label, k = hit.sched.name, 1
-            while label in SCHEDULES:
-                k += 1
-                label = f"{hit.sched.name}#{k}"
-            hit.sched.label = label
-            SCHEDULES[label] = hit.sched
-            _PLAN_CACHE[key] = hit
+        hit.sched.obligations = tuple(log)
+        label, k = hit.sched.name, 1
+        while label in SCHEDULES:
+            k += 1
+            label = f"{hit.sched.name}#{k}"
+        hit.sched.label = label
+        SCHEDULES[label] = hit.sched
+        _bump("schedule")
+        _PLAN_CACHE[key] = hit
         return hit
 
 
@@ -963,6 +1027,7 @@ class ChainProgram:
         with _LOCK:
             hit = self._dev.get(device)
             if hit is None:
+                _bump("chain_upload")
                 prog = torch.from_numpy(self.prog).to(device)
                 one = torch.from_numpy(
                     self.one if self.one is not None else np.zeros(1, np.int64)
@@ -1007,13 +1072,30 @@ def plain_chain(prog: ChainProgram, base):
     return replay_chain(prog, base, plain_plan)
 
 
+def _check_chain_base(prog: ChainProgram, base, cuda: bool = True) -> int:
+    rows = base.shape[0]
+    _check_operand(base, (rows, prog.n_el, fq.NLIMBS), "chain base", cuda)
+    if rows % prog.n_chains:
+        raise ValueError(f"{prog.name}: {rows} rows do not split into {prog.n_chains} chains")
+    return rows
+
+
+def meta_chain(prog: ChainProgram, base):
+    """The chain kernel on the ``meta`` device: the launch's checks and
+    obligations, then an empty output. No arithmetic, no launch."""
+    rows = _check_chain_base(prog, base, cuda=False)
+    out = torch.empty_like(base.contiguous())  # the copy the launch makes
+    if rows:  # the launch's obligations: the cluster the rows pick, its shared memory
+        C = prog.cluster(rows)
+        fq._cert("cuda_smem_bytes", prog.launch_shape(C)[3], SMEM_LIMIT, note=f"{prog.name} C={C}")
+        fq._cert("cuda_plane_width", max(s.wmax for s in prog.scheds), _W_MAX, note=prog.name)
+    return out
+
+
 def cuda_chain(prog: ChainProgram, base, cluster: int | None = None):
     """Launch the chain kernel on the current stream: base int64
     [rows, n_el, 25] (chain-major rows) -> the chains' results, same shape."""
-    rows = base.shape[0]
-    _check_operand(base, (rows, prog.n_el, fq.NLIMBS), "chain base")
-    if rows % prog.n_chains:
-        raise ValueError(f"{prog.name}: {rows} rows do not split into {prog.n_chains} chains")
+    rows = _check_chain_base(prog, base)
     base = base.contiguous()
     out = torch.empty_like(base)
     if rows == 0:
@@ -1038,10 +1120,13 @@ def cuda_chain(prog: ChainProgram, base, cluster: int | None = None):
 def run_chain(prog: ChainProgram, bases):
     """The chain kernel's wrapper: bases [n_chains, *batch, n_el, 25] -> the
     per-chain results, same shape. The plain version for CPU tensors; the
-    CUDA kernel (or an error) for CUDA tensors."""
+    CUDA kernel (or an error) for CUDA tensors; ``meta_chain`` for meta
+    tensors."""
     flat = bases.reshape(-1, prog.n_el, fq.NLIMBS)
     if bases.device.type == "cpu":
         out = plain_chain(prog, flat)
+    elif bases.device.type == "meta":
+        out = meta_chain(prog, flat)
     elif bases.device.type == "cuda":
         out = cuda_chain(prog, flat)
     else:

@@ -33,7 +33,6 @@ PUB_LIMB = fq.PUB_LIMB_TARGET
 PUB_TOP_LIMB = 2
 
 MAX_VALUE_P = 1200
-fq._cert("lincomb_budget_value", MAX_VALUE_P * P, fq._IN_VALUE)
 MAX_LIMB = fq._IN_LIMB + 1  # strict bound: limbs < 2^22
 
 
@@ -240,7 +239,6 @@ F12_BOUND = _Bound(
     (1 << 18) - 1,
     min((1 << 18) - 1, fq.CHAIN_VALUE_LIMIT >> (16 * 24)),
 )
-fq._cert("f12_bound_limb", F12_BOUND.limb, fq.CHAIN_LIMB_TARGET)
 
 
 def f12_interior():
@@ -374,7 +372,17 @@ def _verify_carry_norm_schedule(n_folds: int) -> None:
 
 
 _CARRY_NORM_FOLDS = 3
-_verify_carry_norm_schedule(_CARRY_NORM_FOLDS)
+
+
+def _import_certs() -> None:
+    """The budgets and the carry_norm schedule: proved at import, and again
+    by the bounds certifier (analysis/bounds.py) into its sink."""
+    fq._cert("lincomb_budget_value", MAX_VALUE_P * P, fq._IN_VALUE)
+    fq._cert("f12_bound_limb", F12_BOUND.limb, fq.CHAIN_LIMB_TARGET)
+    _verify_carry_norm_schedule(_CARRY_NORM_FOLDS)
+
+
+_import_certs()
 
 
 def carry_norm(x):

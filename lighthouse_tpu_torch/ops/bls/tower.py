@@ -13,8 +13,6 @@ Fq12 = Fq6[w]/(w^2-v).
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
@@ -228,7 +226,7 @@ def _sqrt_constants():
 _ROOTS8, _SQRT_CF = _sqrt_constants()
 
 
-@functools.lru_cache(maxsize=None)
+@fq.certified_cache
 def _sqrt_program():
     """The joint (w, conj(w)) Fq2 chain as a chain-kernel program: steps are
     the fq2_sqr_lazy / fq2_mul_lazy plans (SQR2 / MUL2 at CHAIN_BOUND)."""
@@ -412,7 +410,7 @@ def fq12_cyclotomic_sqr_lazy(a, in_bound=None):
     return plans.execute(plans.CYC_SQR, a, a, bd, bd, "cyc_sqr_c", out_bound=ob)
 
 
-@functools.lru_cache(maxsize=None)
+@fq.certified_cache
 def _cyc_exp_program():
     """The |x| double-and-add unroll (curve.fixed_schedule(-x)) as a
     chain-kernel program: slot 0 the base, slot 1 the accumulator; steps
@@ -539,7 +537,7 @@ _ABS_X_BITS = tuple(
 )  # (16, 48, 57, 60, 62, 63)
 
 
-@functools.lru_cache(maxsize=None)
+@fq.certified_cache
 def _karabina_run_program(run: int):
     """``run`` compressed squarings at the fq12 interior bound as one
     chain-kernel program (slot 0 the base, slot 1 the accumulator): the

@@ -61,7 +61,7 @@ def fr_to_limbs(vals) -> np.ndarray:
 def limbs_to_fr(a) -> int:
     """Host: one canonical limb row -> Python int."""
     if isinstance(a, torch.Tensor):
-        a = a.detach().cpu().numpy()
+        a = a.detach().cpu().numpy()  # lint: allow(host-sync) host helper: limbs to a Python int
     return fq.limbs_to_int(a)
 
 

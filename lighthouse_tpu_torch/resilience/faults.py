@@ -158,8 +158,8 @@ class FaultRecord:
     rung: str = ""
     attempt: int = 1
     ts: float = field(default_factory=time.time)
-    # OOM faults only, in the reference: the static-memory model's view of
-    # the faulting domain. The port has no memory model yet: always None
+    # OOM faults only: the static-memory model's view of the faulting domain
+    # (analysis.memory.fault_memory_context)
     memory: dict | None = None
 
     def as_dict(self) -> dict:
@@ -197,9 +197,14 @@ def record_fault(
     err = (
         f"{type(exc).__name__}: {exc}" if isinstance(exc, BaseException) else str(exc)
     )
+    mem = None
+    if kind is FaultKind.OOM:
+        from ..analysis.memory import fault_memory_context  # never raises
+
+        mem = fault_memory_context(domain or stage)
     rec = FaultRecord(
         stage=stage, kind=kind, error=err[:500], domain=domain, rung=rung,
-        attempt=attempt,
+        attempt=attempt, memory=mem,
     )
     with _log_lock:
         _log.append(rec)

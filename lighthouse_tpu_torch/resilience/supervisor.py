@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import os
 import random
+import sys
 import threading
 import time
 from dataclasses import dataclass
@@ -216,6 +217,7 @@ class BackendSupervisor:
     # -- watchdog ----------------------------------------------------------
 
     def _with_watchdog(self, stage: str, fn):
+        fn = _on_caller_device(fn)
         # one daemon thread per supervised call (~50-100us): noise next to
         # the ms-scale device dispatch it guards. If a profile ever shows
         # it on the serving path, the upgrade is a persistent worker with a
@@ -457,9 +459,27 @@ def reset_all() -> None:
         sup.reset()
 
 
+def _on_caller_device(fn):
+    """``fn`` made to run on the calling thread's current CUDA device. The
+    current device is per thread and a watchdog worker starts on device 0,
+    where the kernels' ctypes launches would take device 0's context for
+    another card's operands. Unchanged when CUDA is not in use."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.cuda.is_initialized():
+        return fn
+    dev = torch.cuda.current_device()
+
+    def on_device():
+        torch.cuda.set_device(dev)
+        return fn()
+
+    return on_device
+
+
 def run_with_deadline(stage: str, fn, deadline_s: float):
     """Standalone watchdog call (no health machine): bounds a helper call —
     raises ``WatchdogTimeout`` on a hang."""
+    fn = _on_caller_device(fn)
     box: dict = {}
     done = threading.Event()
 

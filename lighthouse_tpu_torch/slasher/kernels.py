@@ -103,7 +103,7 @@ def planes_from_device(planes) -> tuple:
     """Biased device planes as the reference's uint16/uint16/uint32 arrays."""
     out = []
     for p, u in zip(planes, (np.uint16, np.uint16, np.uint32)):
-        a = p.cpu().numpy().view(u)
+        a = p.cpu().numpy().view(u)  # lint: allow(host-sync) host export of the planes
         out.append(a ^ u(1 << (8 * a.itemsize - 1)))
     return tuple(out)
 
@@ -202,7 +202,8 @@ def sweep_(planes, delta, vidx, src, tgt, vh, valid, cur, *, n: int,
     n_rows = touched.shape[0]
     starts = torch.arange(0, n_rows, rows, device=dev)
     bounds = torch.searchsorted(inv_sorted, torch.cat([starts, starts.new_tensor([n_rows])]))
-    bounds = bounds.tolist()
+    # the touched rows' tile boundaries: the sweep's one read before it writes
+    bounds = bounds.tolist()  # lint: allow(host-sync)
 
     written = False
     try:

@@ -270,16 +270,20 @@ def test_cyclotomic_program_computes_abs_x():
 
 def test_chain_wrapper_routes_and_rejects():
     """CPU bases take the plain version (plain calls counted, no launch);
-    another device raises; the CUDA wrapper checks dtype and shape before
-    any launch (host-side checks, testable without a card)."""
+    meta bases the abstract arm (an empty output, no launch, no plain call;
+    a bad shape raises); the CUDA wrapper checks dtype and shape before any
+    launch (host-side checks, testable without a card)."""
     prog = fq._pow_program(P - 2, "inv")
     fm.reset_counts()
     x = _chain_in(fq.from_ints([5], "cpu"))[None, :, None, :]
     fm.run_chain(prog, x)
     assert fm.launches == 0 and fm.plain_calls == prog.n_mults
     fm.reset_counts()
+    out = fm.run_chain(prog, x.to("meta"))
+    assert out.device.type == "meta" and out.shape == x.shape
+    assert fm.launches == 0 and fm.plain_calls == 0
     with pytest.raises(ValueError):
-        fm.run_chain(prog, x.to("meta"))
+        fm.meta_chain(prog, torch.zeros((2, 2, 25), dtype=torch.int64, device="meta"))
     with pytest.raises(TypeError):
         fm.cuda_chain(prog, torch.zeros((2, 1, 25), dtype=torch.int32))
     with pytest.raises(ValueError):

@@ -155,7 +155,9 @@ def test_wrapper_routes_by_device():
 
 def test_kernel_wrapper_rejects_bad_operands():
     """The CUDA wrapper checks dtype, shape and device before any launch
-    (these checks run on the host, so they are testable without a card)."""
+    (these checks run on the host, so they are testable without a card).
+    Meta operands take the abstract arm: the same shape checks, then an
+    empty output of the kernel's shape, no launch and no plain call."""
     sched = fm.mul_schedule(False)
     a = torch.zeros((2, 1, 25), dtype=torch.int64)
     with pytest.raises(TypeError):
@@ -163,7 +165,12 @@ def test_kernel_wrapper_rejects_bad_operands():
     with pytest.raises(ValueError):
         fm.cuda_fused(sched, torch.zeros((2, 2, 25), dtype=torch.int64), a)
     with pytest.raises(ValueError):
-        fm.run_fused(sched, a.to("meta"), a.to("meta"))
+        fm.run_fused(sched, torch.zeros((2, 2, 25), dtype=torch.int64, device="meta"),
+                     a.to("meta"))
+    fm.reset_counts()
+    out = fm.run_fused(sched, a.to("meta"), a.to("meta"))
+    assert out.device.type == "meta" and tuple(out.shape) == (2, 1, 25)
+    assert fm.launches == 0 and fm.plain_calls == 0
 
 
 # --------------------------------------------------------------------------------------

@@ -288,7 +288,8 @@ def test_port_imports_neither_jax_nor_reference(registry, batch):
     store on the CPU, round-trips a fork-choice snapshot, loads the port's
     own trusted setup, derives a key, records a proposal in a slashing
     database, parses a ``vc``, opens a watch database, builds the Karabina
-    plan, and has loaded no jax and nothing of lighthouse_tpu."""
+    plan, certifies ``fq.mont_mul``'s bounds (the analysis package and its
+    modules imported), and has loaded no jax and nothing of lighthouse_tpu."""
     raw, _, _ = registry
     ix, msg, sb = batch[1]
     code = f"""
@@ -325,6 +326,11 @@ import lighthouse_tpu_torch.keys, lighthouse_tpu_torch.validator_client, lightho
 import lighthouse_tpu_torch.validator_client.runner, lighthouse_tpu_torch.tools.vm
 import lighthouse_tpu_torch.bls.mesh, lighthouse_tpu_torch.bls.sharded
 import lighthouse_tpu_torch.firehose.sharding, lighthouse_tpu_torch.epoch_engine.sharded
+import lighthouse_tpu_torch.analysis, lighthouse_tpu_torch.analysis.__main__
+import lighthouse_tpu_torch.analysis.bounds, lighthouse_tpu_torch.analysis.hygiene
+import lighthouse_tpu_torch.analysis.recompile, lighthouse_tpu_torch.analysis.supervised
+import lighthouse_tpu_torch.analysis.durability, lighthouse_tpu_torch.analysis.concurrency
+import lighthouse_tpu_torch.analysis.memory
 from lighthouse_tpu_torch.network import BeaconNodeService, LoopbackTransport
 from lighthouse_tpu_torch import epoch_engine, state_transition
 from lighthouse_tpu_torch.beacon_chain import BeaconChain
@@ -379,6 +385,8 @@ ok = ok and vc_args.interop_validators == 2 and not hasattr(vc_args, "device")
 ok = ok and lighthouse_tpu_torch.watch.WatchDB().slot_bounds() is None
 from lighthouse_tpu_torch.ops.bls import tower
 ok = ok and len(tower.KARABINA_SQR.a_rows) == 14 and tower._ABS_X_BITS[-1] == 63
+cert = lighthouse_tpu_torch.analysis.certify(graphs=["fq.mont_mul"])
+ok = ok and cert["ok"] and cert["n_obligations"] > 0
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "lighthouse_tpu" or m.startswith("lighthouse_tpu.")]
 print(ok, bad)
